@@ -78,7 +78,10 @@ def _bit_reverse_perm(n: int) -> np.ndarray:
 
 
 class Encoder:
-    def __init__(self, params: CkksParams):
+    def __init__(self, params: CkksParams, pt_cache_mb: int = 1024,
+                 msg_cache_mb: int = 4096):
+        """pt_cache_mb, msg_cache_mb: budgets of the encoded-plaintext
+        and integer-message LRUs (ace_tpu's defaults; 0 disables)."""
         self.params = params
         n = params.degree
         self.fft_length = 2 * n
@@ -94,25 +97,21 @@ class Encoder:
         # content-hash LRU over encoded weight plaintexts: static
         # weights / bootstrap diagonals are encoded once per (content,
         # level, sf_degree, extended) and reused across inferences
-        # (budget in MB via ACE_TPU_PT_CACHE_MB; 0 disables)
         import collections
-        import os
         self._pt_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._pt_cache_bytes = 0
         # 1 GB default: the conv diagonal plaintexts live in the
         # level-independent message cache, so this LRU only holds small
         # mask/bias plaintexts
-        self._pt_cache_budget = int(os.environ.get(
-            "ACE_TPU_PT_CACHE_MB", "1024")) << 20
+        self._pt_cache_budget = pt_cache_mb << 20
         # level-independent integer-message cache (encode_msg_cached):
         # one [N] int64 row per unique weight vector, reused at EVERY
         # level/basis by the in-bundle RNS lift
         self._msg_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._msg_cache_bytes = 0
-        self._msg_cache_budget = int(os.environ.get(
-            "ACE_TPU_MSG_CACHE_MB", "4096")) << 20
+        self._msg_cache_budget = msg_cache_mb << 20
         self._zero_msg = None
 
     # -- special FFT (ntt.c:678-753) ------------------------------------

@@ -13,7 +13,8 @@
 // multiply-adds; K2 reads x and writes the product, 16 bytes per element,
 // against about 10. At [46, 32768] that is 36 MB (K1) or 24 MB (K2) of
 // traffic, about 11 us or 7 us at 3.35 TB/s, against 3 us or 1 us of
-// integer work at the 33.5 TOP/s int32 rate. The design answers the bound
+// integer work at 16.7e12 32-bit IMAD/s (132 SMs x 64 lanes x 1.98 GHz,
+// chip_smoke.py's IMAD_PER_S). The design answers the bound
 // with the simplest streaming shape: consecutive threads on consecutive
 // 8-byte words (coalesced 256-byte warps), constants read by row from
 // L1, nothing staged in shared memory, one pass over the data.

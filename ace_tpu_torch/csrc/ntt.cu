@@ -25,7 +25,8 @@
 // the two twiddle tables (2N words) and writes N words: 32 bytes per
 // coefficient, 48 MB at [46, 32768], about 14 us at 3.35 TB/s. The
 // integer work, N/2 log2 N Shoup butterflies of about 10 32-bit
-// multiply-adds each, is about 7 us at 33.5 TOP/s. The design keeps the
+// multiply-adds (IMAD) each, is about 7 us at 16.7e12 IMAD/s (132 SMs x
+// 64 lanes x 1.98 GHz, chip_smoke.py's IMAD_PER_S). The design keeps the
 // data traffic at two reads and two writes per word (one pair per pass)
 // instead of one pair per stage, and reads the twiddles of each stage
 // once per block through L1/L2.
@@ -45,13 +46,18 @@ struct LimbArgs {
     const long long* rows;// [L] table row of each data limb
 };
 
+// Both passes may run in place (in == out: K3's second pass, K4's
+// second pass), so `in` and `out` are not __restrict__. That is safe
+// because each block reads exactly the words it later writes, all of
+// them into shared memory before the __syncthreads() that precedes its
+// first butterfly, and no two blocks share a word.
+//
 // Strided pass: stages st in [0, S) (forward, increasing) or (S, 0]
 // (inverse, decreasing). Block (x, l) owns columns [x*cols, (x+1)*cols)
 // of the [2^S, N/2^S] view of limb l.
 template <bool INV>
 __global__ void __launch_bounds__(THREADS)
-ntt_strided_pass(const u64* __restrict__ in, u64* __restrict__ out,
-                 LimbArgs t, int logn, int S) {
+ntt_strided_pass(const u64* in, u64* out, LimbArgs t, int logn, int S) {
     __shared__ u64 s[TILE_MAX];
     const int log_tile = logn - S;  // == log2(TILE)
     const int logcols = log_tile - S;
@@ -108,8 +114,7 @@ ntt_strided_pass(const u64* __restrict__ in, u64* __restrict__ out,
 // The inverse's first stage (st = logn - 1) folds in N^-1.
 template <bool INV>
 __global__ void __launch_bounds__(THREADS)
-ntt_contig_pass(const u64* __restrict__ in, u64* __restrict__ out,
-                LimbArgs t, int logn, int S) {
+ntt_contig_pass(const u64* in, u64* out, LimbArgs t, int logn, int S) {
     __shared__ u64 s[TILE_MAX];
     const int log_tile = logn - S;
     const int tile = 1 << log_tile;

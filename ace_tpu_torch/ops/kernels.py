@@ -5,8 +5,8 @@ with a plain C interface, loaded with ctypes; the launchers take raw
 device pointers and PyTorch's current stream and return
 cudaGetLastError(). Nothing here runs at import: the first call of a
 kernel wrapper builds every library (one `nvcc` per source, all started
-together) into the build directory, `<repo>/build/ace_tpu_torch/` unless
-ACE_TPU_TORCH_BUILD_DIR says otherwise. Libraries are named by a hash of
+together) into the build directory, `<repo>/build/ace_tpu_torch/`.
+Libraries are named by a hash of
 their sources, so an edited kernel rebuilds and an unchanged one loads.
 """
 
@@ -43,8 +43,7 @@ _lock = threading.Lock()
 
 def build_dir() -> str:
     repo = os.path.dirname(os.path.dirname(_HERE))
-    return os.environ.get("ACE_TPU_TORCH_BUILD_DIR",
-                          os.path.join(repo, "build", "ace_tpu_torch"))
+    return os.path.join(repo, "build", "ace_tpu_torch")
 
 
 def _nvcc() -> str:
