@@ -1,41 +1,78 @@
 // Kernels K3 (forward negacyclic NTT) and K4 (inverse) over [L, N] uint64
-// residue planes, one limb per grid row, position-identical to
-// ops/ntt.py ntt_fwd / ntt_inv (Cooley-Tukey forward into bit-reversed
-// "NTT form", Gentleman-Sande inverse with N^-1 folded into the first,
-// pairwise stage; twiddles rou[bitrev(i)] = psi^i with Shoup precomputes).
+// residue planes, position-identical to ops/ntt.py ntt_fwd_plain /
+// ntt_inv_plain (Cooley-Tukey forward into bit-reversed "NTT form",
+// Gentleman-Sande inverse with N^-1 folded into the first, pairwise
+// stage; twiddles rou[bitrev(i)] = psi^i with Shoup precomputes).
 //
 // K3 replaces ace_tpu/ops/ntt4.py ntt4_fwd (_fwd_compute, _negact_cols,
 // _make_kernel, _call); K4 replaces ntt4.py ntt4_inv (_inv_compute,
-// _negags_cols). The TPU kernel holds a whole limb in VMEM; a limb at
-// N = 2^15 is 256 KB, more than the 227 KB of shared memory a Hopper
-// block can use. So each transform is two shared-memory passes over
-// tiles of TILE = min(N, 4096) words (32 KB):
-//   forward  pass A (strided):    the first S = log2(N/TILE) stages. Their
-//            butterflies pair elements TILE apart, so the 2^S words
-//            {c + t*TILE} of every column c form a closed set; a block
-//            loads 2^S rows x TILE/2^S adjacent columns.
-//            pass B (contiguous): the remaining log2(TILE) stages act on
-//            aligned runs of TILE words; a block loads one run.
-//   inverse  the same passes in the opposite order (B, then A).
-// The butterflies, twiddles and their order are those of the 1-step
-// ladder, and every operation returns a canonical residue, so the output
-// equals ntt.ntt_fwd / ntt_inv word for word.
+// _negags_cols). The TPU kernel holds a whole limb in VMEM.
 //
-// Bound on an H100: memory. Per limb the transform reads N words and
-// the two twiddle tables (2N words) and writes N words: 32 bytes per
-// coefficient, 48 MB at [46, 32768], about 14 us at 3.35 TB/s. The
-// integer work, N/2 log2 N Shoup butterflies of about 10 32-bit
-// multiply-adds (IMAD) each, is about 7 us at 16.7e12 IMAD/s (132 SMs x
-// 64 lanes x 1.98 GHz, chip_smoke.py's IMAD_PER_S). The design keeps the
-// data traffic at two reads and two writes per word (one pair per pass)
-// instead of one pair per stage, and reads the twiddles of each stage
-// once per block through L1/L2.
+// What bounds it on an H100. Per limb the transform reads N words and the
+// two twiddle tables (2N words) and writes N words: 32 bytes per
+// coefficient, 48 MB at [46, 32768], 14.4 us at 3.35 TB/s (the bound
+// chip_smoke.py states). The design below moves each of those words
+// between device memory and the SMs once. What it then runs into is
+// integer issue: a butterfly's 64-bit Shoup product and two modular
+// corrections compile to about 58 SASS instructions (about 22 of them
+// IMAD), and every integer pipe of the SM is half rate, so the N/2 log2 N
+// butterflies at [46, 32768] need about 20 us of issue slots on 132 SMs
+// (scripts/torch_ntt_sweep.py --sass prints the mix; PERF.md has the
+// times).
+//
+// One launch, one thread-block cluster per limb. The C = 2^LC blocks of
+// a cluster (grid (C, L)) each hold one contiguous chunk of M = N/C
+// words in dynamic shared memory, so together they hold the limb (N =
+// 2^15: 8 blocks of 32 KB; N = 2^17: 8 of 128 KB). Stage st of the
+// ladder pairs words N/2^(st+1) apart, so the first LC stages pair words
+// of different chunks; for a column j < M the C words {r*M + j} are
+// closed under them.
+//   forward: each block loads M/C columns straight from device memory
+//            (a warp reads 32 consecutive words of each row), runs the LC
+//            cross-chunk stages in registers and scatters row r of each
+//            column into block r's shared memory (distributed shared
+//            memory); cluster.sync(); then the other log2 M stages on the
+//            block's own chunk, which it stores in consecutive words.
+//   inverse: the mirror image: load the chunk, run its log2 M stages
+//            (N^-1 folded into the first), cluster.sync(), gather the
+//            columns over DSMEM, run the LC cross-chunk stages and store.
+// Register radix: the in-chunk stages go in groups of up to K = 3; a
+// thread loads the 2^K words that a group's butterflies close over into
+// registers, runs all the group's stages on them and writes them back:
+// one __syncthreads() per K stages. The group's 2^K - 1 twiddles (and
+// their Shoup precomputes) form 2^i consecutive, 2^i-aligned entries per
+// stage i; the thread issues all their loads (16-byte for i >= 1) before
+// its first butterfly. Radix 8 keeps a thread within 64 registers, so
+// four 8-warp blocks share an SM (radix 16 needed 120-150 registers and
+// measured slower). Shared memory is swizzled (word i at slot
+// i ^ ((i >> K) & 15)), which keeps every 64-bit access of a half-warp on
+// 16 different bank pairs for every set stride the groups use.
+// tests/test_torch_ntt_schedule.py models this schedule in numpy.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include "modarith.cuh"
 
-#define TILE_LOG_MAX 12
-#define TILE_MAX (1 << TILE_LOG_MAX)
-#define THREADS 256
+namespace cg = cooperative_groups;
+
+// The launch-shape constants can be set with -D, for
+// scripts/torch_ntt_sweep.py's comparison of shapes; the library builds
+// with these values.
+#ifndef K
+#define K 3              // register radix: stages per shared-memory round
+#endif
+#define LOGN_MAX 17      // N up to 2^17: 8 blocks of 128 KB
+#ifndef LC_MAX
+#define LC_MAX 3         // clusters of up to 8 blocks (portable size)
+#endif
+#ifndef CHUNK_LOG
+#define CHUNK_LOG 11     // chunks of >= 2^11 words where N allows
+#endif
+#ifndef THREADS_MAX
+#define THREADS_MAX 256
+#endif
+#ifndef MIN_BLOCKS
+#define MIN_BLOCKS 4     // blocks per SM: __launch_bounds__ caps registers
+#endif                   // at 64, so 4 blocks of 8 warps fit on an SM
 
 struct LimbArgs {
     const u64* rou;       // [Lfull, N] twiddles (inverse twiddles for K4)
@@ -46,24 +83,136 @@ struct LimbArgs {
     const long long* rows;// [L] table row of each data limb
 };
 
-// Both passes may run in place (in == out: K3's second pass, K4's
-// second pass), so `in` and `out` are not __restrict__. That is safe
-// because each block reads exactly the words it later writes, all of
-// them into shared memory before the __syncthreads() that precedes its
-// first butterfly, and no two blocks share a word.
-//
-// Strided pass: stages st in [0, S) (forward, increasing) or (S, 0]
-// (inverse, decreasing). Block (x, l) owns columns [x*cols, (x+1)*cols)
-// of the [2^S, N/2^S] view of limb l.
-template <bool INV>
-__global__ void __launch_bounds__(THREADS)
-ntt_strided_pass(const u64* in, u64* out, LimbArgs t, int logn, int S) {
-    __shared__ u64 s[TILE_MAX];
-    const int log_tile = logn - S;  // == log2(TILE)
-    const int logcols = log_tile - S;
-    const int cols = 1 << logcols;
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> K) & 15); }
+
+// A block may touch another's shared memory only once that block runs:
+// the forward kernel arrives on the cluster barrier first thing and waits
+// only before its first remote store, so its first loads overlap the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ct_bfly(u64& x, u64& y, u64 w, u64 wp,
+                                        u64 q) {
+    const u64 t = shoup_mul(y, w, wp, q);
+    y = sub_mod(x, t, q);
+    x = add_mod(x, t, q);
+}
+
+__device__ __forceinline__ void gs_bfly(u64& x, u64& y, u64 w, u64 wp,
+                                        u64 q) {
+    const u64 s = add_mod(x, y, q);
+    y = shoup_mul(sub_mod(x, y, q), w, wp, q);
+    x = s;
+}
+
+// Stages [sa, sa + KK) on the block's chunk s (block b of the cluster).
+// Set u = (G, r) holds the 2^KK words base + t * 2^ls, base = G * 2^(ls +
+// KK) + r, r < 2^ls: exactly the words the group's butterflies mix.
+// Stage st = sa + i of the set reads twiddles (1 << st) + (b << (st -
+// lc)) + (G << i) + c, c < 2^i. FOLD: the inverse's top group, whose
+// first stage (st = logn - 1) also multiplies by N^-1.
+template <bool INV, int KK, bool FOLD>
+__device__ __forceinline__ void stage_group(u64* s, const u64* w,
+                                            const u64* wp, u64 q, int sa,
+                                            int logn, int lc, int b, u64 ni,
+                                            u64 nip) {
+    const int ls = logn - sa - KK;
+    const int nsets = 1 << (logn - lc - KK);
+    for (int u = threadIdx.x; u < nsets; u += blockDim.x) {
+        const int r = u & ((1 << ls) - 1);
+        const int G = u >> ls;
+        const int base = (G << (ls + KK)) + r;
+        u64 W[1 << KK], WP[1 << KK];  // stage i's c-th twiddle at (1<<i)+c
+#pragma unroll
+        for (int i = 0; i < KK; ++i) {
+            const int st = sa + i;
+            const int o = (1 << st) + (b << (st - lc)) + (G << i);
+            if (i == 0) {
+                W[1] = __ldg(w + o);
+                WP[1] = __ldg(wp + o);
+            } else {
+#pragma unroll
+                for (int c = 0; c < (1 << i); c += 2) {
+                    const ulonglong2 a =
+                        __ldg(reinterpret_cast<const ulonglong2*>(w + o + c));
+                    const ulonglong2 ap =
+                        __ldg(reinterpret_cast<const ulonglong2*>(wp + o + c));
+                    W[(1 << i) + c] = a.x;
+                    W[(1 << i) + c + 1] = a.y;
+                    WP[(1 << i) + c] = ap.x;
+                    WP[(1 << i) + c + 1] = ap.y;
+                }
+            }
+        }
+        u64 v[1 << KK];
+#pragma unroll
+        for (int t = 0; t < (1 << KK); ++t) v[t] = s[swz(base + (t << ls))];
+#pragma unroll
+        for (int k = 0; k < KK; ++k) {
+            const int i = INV ? KK - 1 - k : k;
+            const int h = 1 << (KK - 1 - i);  // pair distance in the set
+#pragma unroll
+            for (int j = 0; j < (1 << (KK - 1)); ++j) {
+                const int c = j >> (KK - 1 - i);
+                const int lo = (c << (KK - i)) | (j & (h - 1));
+                if (!INV) {
+                    ct_bfly(v[lo], v[lo + h], W[(1 << i) + c],
+                            WP[(1 << i) + c], q);
+                } else {
+                    gs_bfly(v[lo], v[lo + h], W[(1 << i) + c],
+                            WP[(1 << i) + c], q);
+                    if (FOLD && k == 0) {
+                        v[lo] = shoup_mul(v[lo], ni, nip, q);
+                        v[lo + h] = shoup_mul(v[lo + h], ni, nip, q);
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < (1 << KK); ++t) s[swz(base + (t << ls))] = v[t];
+    }
+}
+
+template <bool INV, bool FOLD>
+__device__ __forceinline__ void run_group(int kk, u64* s, const u64* w,
+                                          const u64* wp, u64 q, int sa,
+                                          int logn, int lc, int b, u64 ni,
+                                          u64 nip) {
+    switch (kk) {
+    case 1: stage_group<INV, 1, FOLD>(s, w, wp, q, sa, logn, lc, b, ni, nip);
+            break;
+    case 2: stage_group<INV, 2, FOLD>(s, w, wp, q, sa, logn, lc, b, ni, nip);
+            break;
+#if K > 3
+    case 3: stage_group<INV, 3, FOLD>(s, w, wp, q, sa, logn, lc, b, ni, nip);
+            break;
+#endif
+    default: stage_group<INV, K, FOLD>(s, w, wp, q, sa, logn, lc, b, ni,
+                                       nip);
+    }
+}
+
+// The in-place case (in == out) is safe, so the data pointers are not
+// __restrict__: every word of a limb is read, by some block of its
+// cluster, before the cluster.sync() that precedes the first write.
+// Device-memory accesses are 8-byte words, consecutive across the
+// threads of a warp (fully used 32-byte sectors).
+template <bool INV, int LC>
+__global__ void __launch_bounds__(THREADS_MAX, MIN_BLOCKS)
+ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
+    extern __shared__ __align__(16) u64 s[];
+    constexpr int C = 1 << LC;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int b = (int)cluster.block_rank();
+    const int lm = logn - LC;
+    const int M = 1 << lm;
+    const int cols = M >> LC;  // columns of this block in the cross phase
     const long long n = 1LL << logn;
-    const long long stride = 1LL << log_tile;
     const int l = blockIdx.y;
     const long long g = t.rows[l];
     const u64* src = in + (long long)l * n;
@@ -71,125 +220,225 @@ ntt_strided_pass(const u64* in, u64* out, LimbArgs t, int logn, int S) {
     const u64* w = t.rou + g * n;
     const u64* wp = t.rou_prec + g * n;
     const u64 q = t.q[g];
-    const long long c0 = (long long)blockIdx.x * cols;
-    const int tile = 1 << log_tile;
 
-    for (int e = threadIdx.x; e < tile; e += THREADS) {
-        int r = e >> logcols, c = e & (cols - 1);
-        s[e] = src[r * stride + c0 + c];
+    // twiddles of the LC cross-chunk stages: entries 1 .. C-1
+    u64 cw[C], cwp[C];
+#pragma unroll
+    for (int i = 1; i < C; ++i) {
+        cw[i] = __ldg(w + i);
+        cwp[i] = __ldg(wp + i);
     }
-    __syncthreads();
-    const int nb = tile >> 1;
-    for (int k = 0; k < S; ++k) {
-        const int st = INV ? S - 1 - k : k;
-        const int m = 1 << st;
-        const int log_half = S - st - 1;  // half-span in rows
-        for (int u = threadIdx.x; u < nb; u += THREADS) {
-            int c = u & (cols - 1);
-            int v = u >> logcols;
-            int gi = v >> log_half;
-            int r = v & ((1 << log_half) - 1);
-            int ia = (((gi << (log_half + 1)) + r) << logcols) + c;
-            int ib = ia + (1 << (log_half + logcols));
-            u64 W = w[m + gi], WP = wp[m + gi];
-            u64 x = s[ia], y = s[ib];
-            if (!INV) {
-                y = shoup_mul(y, W, WP, q);
-                s[ia] = add_mod(x, y, q);
-                s[ib] = sub_mod(x, y, q);
-            } else {
-                s[ia] = add_mod(x, y, q);
-                s[ib] = shoup_mul(sub_mod(x, y, q), W, WP, q);
-            }
-        }
-        __syncthreads();
-    }
-    for (int e = threadIdx.x; e < tile; e += THREADS) {
-        int r = e >> logcols, c = e & (cols - 1);
-        dst[r * stride + c0 + c] = s[e];
-    }
-}
 
-// Contiguous pass: stages st in [S, logn) on aligned runs of TILE words.
-// The inverse's first stage (st = logn - 1) folds in N^-1.
-template <bool INV>
-__global__ void __launch_bounds__(THREADS)
-ntt_contig_pass(const u64* in, u64* out, LimbArgs t, int logn, int S) {
-    __shared__ u64 s[TILE_MAX];
-    const int log_tile = logn - S;
-    const int tile = 1 << log_tile;
-    const long long n = 1LL << logn;
-    const int l = blockIdx.y;
-    const long long g = t.rows[l];
-    const long long j0 = (long long)blockIdx.x * tile;
-    const u64* src = in + (long long)l * n + j0;
-    u64* dst = out + (long long)l * n + j0;
-    const u64* w = t.rou + g * n;
-    const u64* wp = t.rou_prec + g * n;
-    const u64 q = t.q[g];
-
-    for (int e = threadIdx.x; e < tile; e += THREADS) s[e] = src[e];
-    __syncthreads();
-    const int nb = tile >> 1;
-    const int nst = logn - S;
-    for (int k = 0; k < nst; ++k) {
-        const int st = INV ? logn - 1 - k : S + k;
-        const long long m = 1LL << st;
-        const int log_half = logn - st - 1;
-        const long long gbase = j0 >> (log_half + 1);
-        const bool first = INV && k == 0;
-        const u64 ni = first ? t.ninv[g] : 0, nip = first ? t.ninv_prec[g] : 0;
-        for (int u = threadIdx.x; u < nb; u += THREADS) {
-            int gl = u >> log_half;
-            int r = u & ((1 << log_half) - 1);
-            int ia = (gl << (log_half + 1)) + r;
-            int ib = ia + (1 << log_half);
-            u64 W = w[m + gbase + gl], WP = wp[m + gbase + gl];
-            u64 x = s[ia], y = s[ib];
-            if (!INV) {
-                y = shoup_mul(y, W, WP, q);
-                s[ia] = add_mod(x, y, q);
-                s[ib] = sub_mod(x, y, q);
-            } else {
-                u64 sm = add_mod(x, y, q);
-                u64 df = shoup_mul(sub_mod(x, y, q), W, WP, q);
-                if (first) {
-                    sm = shoup_mul(sm, ni, nip, q);
-                    df = shoup_mul(df, ni, nip, q);
+    if (!INV) {
+        cluster_arrive_relaxed();
+        bool waited = false;
+        for (int j = b * cols + threadIdx.x; j < (b + 1) * cols;
+             j += blockDim.x) {
+            u64 x[C];
+#pragma unroll
+            for (int r = 0; r < C; ++r) x[r] = src[r * M + j];
+#pragma unroll
+            for (int st = 0; st < LC; ++st) {
+                const int h = C >> (st + 1);
+#pragma unroll
+                for (int jj = 0; jj < C / 2; ++jj) {
+                    const int lo = (jj / h) * 2 * h + jj % h;
+                    const int tw = (1 << st) + (lo >> (LC - st));
+                    ct_bfly(x[lo], x[lo + h], cw[tw], cwp[tw], q);
                 }
-                s[ia] = sm;
-                s[ib] = df;
             }
+            if (!waited) {
+                cluster_wait();
+                waited = true;
+            }
+#pragma unroll
+            for (int r = 0; r < C; ++r)
+                cluster.map_shared_rank(s, r)[swz(j)] = x[r];
         }
+        if (!waited) cluster_wait();
+        cluster.sync();
+        int sa = LC;
+        int kk = (lm - 1) % K + 1;
+        while (sa < logn) {
+            run_group<false, false>(kk, s, w, wp, q, sa, logn, LC, b, 0, 0);
+            __syncthreads();
+            sa += kk;
+            kk = K;
+        }
+        u64* d = dst + (long long)b * M;
+        for (int p = threadIdx.x; p < M; p += blockDim.x) d[p] = s[swz(p)];
+    } else {
+        const u64 ni = t.ninv[g], nip = t.ninv_prec[g];
+        const u64* c = src + (long long)b * M;
+        for (int p = threadIdx.x; p < M; p += blockDim.x) s[swz(p)] = c[p];
         __syncthreads();
+        int hi = logn;
+        while (hi > LC) {
+            const int kk = hi - LC < K ? hi - LC : K;
+            if (hi == logn)
+                run_group<true, true>(kk, s, w, wp, q, hi - kk, logn, LC, b,
+                                      ni, nip);
+            else
+                run_group<true, false>(kk, s, w, wp, q, hi - kk, logn, LC, b,
+                                       0, 0);
+            __syncthreads();
+            hi -= kk;
+        }
+        cluster.sync();
+        for (int j = b * cols + threadIdx.x; j < (b + 1) * cols;
+             j += blockDim.x) {
+            u64 x[C];
+#pragma unroll
+            for (int r = 0; r < C; ++r)
+                x[r] = cluster.map_shared_rank(s, r)[swz(j)];
+#pragma unroll
+            for (int st = LC - 1; st >= 0; --st) {
+                const int h = C >> (st + 1);
+#pragma unroll
+                for (int jj = 0; jj < C / 2; ++jj) {
+                    const int lo = (jj / h) * 2 * h + jj % h;
+                    const int tw = (1 << st) + (lo >> (LC - st));
+                    gs_bfly(x[lo], x[lo + h], cw[tw], cwp[tw], q);
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < C; ++r) dst[r * M + j] = x[r];
+        }
+        // no block may leave while another still reads its chunk
+        cluster.sync();
     }
-    for (int e = threadIdx.x; e < tile; e += THREADS) dst[e] = s[e];
 }
 
-static int split(int logn) {
-    return logn > TILE_LOG_MAX ? logn - TILE_LOG_MAX : 0;
+// Launch shape for L limbs of 2^logn words: cluster of 2^lc blocks, so
+// that a chunk holds 2^CHUNK_LOG words or more (one block below N =
+// 2^12, 8 blocks from N = 2^14), and threads enough for one set of 2^K
+// words each per group (32 to 256).
+static int cluster_log(int logn) {
+    const int lc = logn - CHUNK_LOG;
+    return lc < 0 ? 0 : (lc > LC_MAX ? LC_MAX : lc);
+}
+
+static int threads_for(int lm) {
+    const int sets = lm > K ? 1 << (lm - K) : 1;
+    return sets < 32 ? 32 : (sets > THREADS_MAX ? THREADS_MAX : sets);
+}
+
+// The launch configuration of ntt_cluster<INV, LC> for L limbs of
+// 2^logn words. The first launch of a shape raises the kernel's dynamic
+// shared-memory limit to what the shape needs.
+template <bool INV, int LC>
+static cudaError_t prepare(int L, int logn, cudaStream_t st,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+    static size_t smem_set = 0;
+    auto kern = ntt_cluster<INV, LC>;
+    const int lm = logn - LC;
+    const size_t smem = sizeof(u64) << lm;
+    if (smem > smem_set) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e == cudaSuccess && LC > 3)  // 16 blocks: beyond portable
+            e = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+        smem_set = smem;
+    }
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(1 << LC, L);
+    cfg->blockDim = dim3(threads_for(lm));
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1 << LC;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    return cudaSuccess;
+}
+
+// Clusters of this shape the card holds at once (0: it does not fit).
+template <bool INV, int LC>
+static cudaError_t max_clusters(int logn, int* count) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    const cudaError_t e = prepare<INV, LC>(1, logn, 0, &cfg, attr);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveClusters(count, ntt_cluster<INV, LC>, &cfg);
+}
+
+template <bool INV, int LC>
+static int launch(const u64* x, u64* y, LimbArgs t, int L, int logn,
+                  cudaStream_t st) {
+    static int fits[LOGN_MAX + 1];  // 0 unchecked, 1 fits, -1 does not
+    if (fits[logn] == 0) {
+        int nc = 0;
+        const cudaError_t e = max_clusters<INV, LC>(logn, &nc);
+        if (e != cudaSuccess) return (int)e;
+        fits[logn] = nc > 0 ? 1 : -1;
+    }
+    if (fits[logn] < 0) return (int)cudaErrorInvalidConfiguration;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    const cudaError_t e = prepare<INV, LC>(L, logn, st, &cfg, attr);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaLaunchKernelEx(&cfg, ntt_cluster<INV, LC>, x, y, t,
+                                   logn);
+}
+
+template <bool INV>
+static int clusters_at_once(int logn, int* count) {
+    switch (cluster_log(logn)) {
+    case 0: return (int)max_clusters<INV, 0>(logn, count);
+    case 1: return (int)max_clusters<INV, 1>(logn, count);
+    case 2: return (int)max_clusters<INV, 2>(logn, count);
+#if LC_MAX > 3
+    case 4: return (int)max_clusters<INV, 4>(logn, count);
+#endif
+    default: return (int)max_clusters<INV, 3>(logn, count);
+    }
+}
+
+template <bool INV>
+static int dispatch(const void* x, void* y, LimbArgs t, int L, int logn,
+                    void* stream) {
+    if (logn < 1 || logn > LOGN_MAX || L < 1 || L > 65535)
+        return (int)cudaErrorInvalidValue;
+    const u64* in = (const u64*)x;
+    u64* out = (u64*)y;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (cluster_log(logn)) {
+    case 0: return launch<INV, 0>(in, out, t, L, logn, st);
+    case 1: return launch<INV, 1>(in, out, t, L, logn, st);
+    case 2: return launch<INV, 2>(in, out, t, L, logn, st);
+#if LC_MAX > 3
+    case 4: return launch<INV, 4>(in, out, t, L, logn, st);
+#endif
+    default: return launch<INV, 3>(in, out, t, L, logn, st);
+    }
+}
+
+// The launch shape K3/K4 use for [L, 2^logn]: out = {cluster blocks,
+// threads per block, dynamic shared memory bytes per block, grid blocks,
+// K3 clusters resident at once, K4 clusters resident at once}.
+extern "C" int ace_ntt_shape(int L, int logn, int* out) {
+    if (logn < 1 || logn > LOGN_MAX) return (int)cudaErrorInvalidValue;
+    const int lc = cluster_log(logn);
+    out[0] = 1 << lc;
+    out[1] = threads_for(logn - lc);
+    out[2] = (int)(sizeof(u64) << (logn - lc));
+    out[3] = L << lc;
+    const int e = clusters_at_once<false>(logn, out + 4);
+    return e ? e : clusters_at_once<true>(logn, out + 5);
 }
 
 extern "C" int ace_k3_ntt_fwd(const void* x, void* y, const void* rou,
                               const void* rou_prec, const void* q,
                               const void* rows, int L, int logn,
                               void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
     LimbArgs t{(const u64*)rou, (const u64*)rou_prec, (const u64*)q,
                nullptr, nullptr, (const long long*)rows};
-    const int S = split(logn);
-    const int log_tile = logn - S;
-    const u64* src = (const u64*)x;
-    if (S > 0) {
-        dim3 grid(1 << S, L);  // (N / TILE) column blocks of TILE/2^S
-        ntt_strided_pass<false><<<grid, THREADS, 0, st>>>(src, (u64*)y, t,
-                                                          logn, S);
-        src = (const u64*)y;
-    }
-    dim3 grid(1 << (logn - log_tile), L);
-    ntt_contig_pass<false><<<grid, THREADS, 0, st>>>(src, (u64*)y, t, logn,
-                                                     S);
-    return (int)cudaGetLastError();
+    return dispatch<false>(x, y, t, L, logn, stream);
 }
 
 extern "C" int ace_k4_ntt_inv(const void* x, void* y, const void* rou_inv,
@@ -197,19 +446,8 @@ extern "C" int ace_k4_ntt_inv(const void* x, void* y, const void* rou_inv,
                               const void* ninv, const void* ninv_prec,
                               const void* rows, int L, int logn,
                               void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
     LimbArgs t{(const u64*)rou_inv, (const u64*)rou_inv_prec, (const u64*)q,
                (const u64*)ninv, (const u64*)ninv_prec,
                (const long long*)rows};
-    const int S = split(logn);
-    const int log_tile = logn - S;
-    dim3 grid(1 << (logn - log_tile), L);
-    ntt_contig_pass<true><<<grid, THREADS, 0, st>>>((const u64*)x, (u64*)y,
-                                                    t, logn, S);
-    if (S > 0) {
-        dim3 grid2(1 << S, L);
-        ntt_strided_pass<true><<<grid2, THREADS, 0, st>>>(
-            (const u64*)y, (u64*)y, t, logn, S);
-    }
-    return (int)cudaGetLastError();
+    return dispatch<true>(x, y, t, L, logn, stream);
 }

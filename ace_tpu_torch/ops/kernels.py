@@ -35,6 +35,7 @@ _SIGNATURES = {
     "ace_k2_shoup_mul": [_VP, _VP, _VP, _VP, _VP, _LL, _I, _VP],
     "ace_k3_ntt_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "ace_k4_ntt_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "ace_ntt_shape": [_I, _I, _VP],
 }
 
 _libs: dict = {}

@@ -1,24 +1,30 @@
 """Kernels K3 (forward NTT) and K4 (inverse NTT): wrappers.
 
 K3 `ntt4_fwd` replaces ace_tpu/ops/ntt4.py ntt4_fwd, K4 `ntt4_inv`
-replaces ntt4.py ntt4_inv. The CUDA source is csrc/ntt.cu; its note
-gives the two-pass shared-memory split that the 227 KB block limit
-forces at N = 2^15 and the bound. The kernels read the same tables as
-the 1-step ladders (ops/ntt.py NttTables, indexed by `rows`), so the
-TPU kernel's four-step diagonal and u32-plane tables have no
-counterpart here.
+replaces ntt4.py ntt4_inv. The CUDA source is csrc/ntt.cu: one launch
+per transform, one thread-block cluster per limb whose blocks together
+hold the limb in shared memory, so each word is read from and written to
+device memory once; its note gives the design and the bound. The kernels
+read the same tables as the 1-step ladders (ops/ntt.py NttTables,
+indexed by `rows`), so the TPU kernel's four-step diagonal and u32-plane
+tables have no counterpart here. N runs from 2 to 2^17 (LOGN_MAX); any
+other degree raises.
 
 Each wrapper takes the plain version (ops/ntt.py ntt_fwd_plain /
 ntt_inv_plain) only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises. `launches` counts wrapper calls that launched the
-kernel (each call runs its two passes, or one pass when N <= 4096).
+kernel (one launch each), `limbs` the limbs those launches transformed.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ace_tpu_torch.ops import ntt as _ntt
+
+LOGN_MAX = 17  # csrc/ntt.cu LOGN_MAX: 8 blocks of 128 KB at N = 2^17
 
 
 def _prep(x: torch.Tensor, t: "_ntt.NttTables"):
@@ -32,9 +38,23 @@ def _prep(x: torch.Tensor, t: "_ntt.NttTables"):
     if t.rou.device != x.device:
         raise ValueError("tables and data lie on different devices")
     n = x.shape[1]
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"degree {n} is not a power of two")
+    if n < 2 or n & (n - 1) or n > 1 << LOGN_MAX:
+        raise ValueError(f"degree {n} is not a power of two in "
+                         f"[2, 2^{LOGN_MAX}]")
     return x.contiguous(), n.bit_length() - 1
+
+
+def launch_shape(L: int, n: int) -> dict:
+    """The launch shape K3/K4 take for [L, n] (from csrc/ntt.cu, so it
+    needs the built library and a card): blocks per cluster, threads per
+    block, dynamic shared memory per block in bytes, blocks in the grid,
+    and how many such clusters the card holds at once for K3 and K4."""
+    from ace_tpu_torch.ops import kernels
+    out = (ctypes.c_int * 6)()
+    kernels.check(kernels.lib("ntt").ace_ntt_shape(L, n.bit_length() - 1,
+                                                   out), "ntt launch shape")
+    return dict(zip(("cluster", "threads", "smem_bytes", "blocks",
+                     "resident_k3", "resident_k4"), out))
 
 
 def ntt4_fwd(coeffs: torch.Tensor, t: "_ntt.NttTables") -> torch.Tensor:
@@ -51,6 +71,7 @@ def ntt4_fwd(coeffs: torch.Tensor, t: "_ntt.NttTables") -> torch.Tensor:
         x.shape[0], logn, kernels.stream_ptr(x))
     kernels.check(rc, "K3 ntt4_fwd")
     ntt4_fwd.launches += 1
+    ntt4_fwd.limbs += x.shape[0]
     return out
 
 
@@ -69,8 +90,9 @@ def ntt4_inv(values: torch.Tensor, t: "_ntt.NttTables") -> torch.Tensor:
         kernels.stream_ptr(x))
     kernels.check(rc, "K4 ntt4_inv")
     ntt4_inv.launches += 1
+    ntt4_inv.limbs += x.shape[0]
     return out
 
 
-ntt4_fwd.launches = 0
-ntt4_inv.launches = 0
+ntt4_fwd.launches = ntt4_fwd.limbs = 0
+ntt4_inv.launches = ntt4_inv.limbs = 0

@@ -11,7 +11,8 @@ Four phases; any failure exits non-zero and prints no result line.
      prime chain (34 q primes and the P primes) — each equal, word for
      word, to its plain PyTorch version on the same inputs, plus the
      K3-K4 round trip; then each kernel's time (CUDA events, see
-     phase_kernels), its plain version's time, launch shape and bound.
+     phase_kernels), its plain version's time, launch shape and bound;
+     then K3 and K4 likewise at the slice's own limb counts 1, 12, 34.
   3. exactness of whole ops: one rotate and one mul+rescale of a level-34
      ciphertext under the port's own keys, on the card and on the CPU
      (plain versions); the residues must be identical.
@@ -96,10 +97,17 @@ def counters() -> dict:
 def reset_counters() -> None:
     for w in counters().values():
         w.launches = 0
+        if hasattr(w, "limbs"):
+            w.limbs = 0
 
 
 def read_counters() -> dict:
     return {k: w.launches for k, w in counters().items()}
+
+
+def read_limbs() -> dict:
+    """Limbs transformed by the NTT kernels' launches."""
+    return {k: w.limbs for k, w in counters().items() if hasattr(w, "limbs")}
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +194,7 @@ def phase_kernels(crt) -> list:
             tp["n_inv"], tp["n_inv_prec"], tp["rows"], L, logn, st),
     }
     grid = min((L * n + 255) // 256, 132 * 64)
-    passes = (f"{2 if n > 4096 else 1} pass(es), grid "
-              f"({max(1, n // 4096)}, {L}) x 256 threads, 32 KB static smem")
+    ntt_launch = ntt_shape(L, n)
     cases = [
         ("K1", "barrett_mul", lambda: pm.barrett_mul(a, b, q, mu_hi, mu_lo),
          lambda: pm.barrett_mul_plain(a, b, q, mu_hi, mu_lo),
@@ -204,11 +211,11 @@ def phase_kernels(crt) -> list:
         ("K3", "ntt4_fwd", lambda: ntt4.ntt4_fwd(a, t),
          lambda: ntt.ntt_fwd_plain(a, t),
          "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:510",
-         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * logn, passes),
+         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * logn, ntt_launch),
         ("K4", "ntt4_inv", lambda: ntt4.ntt4_inv(a, t),
          lambda: ntt.ntt_inv_plain(a, t),
          "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:515",
-         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * (logn + 2), passes),
+         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * (logn + 2), ntt_launch),
     ]
     rows = []
     for key, name, kern, plain, src, repl, nbytes, imads, shape in cases:
@@ -239,7 +246,74 @@ def phase_kernels(crt) -> list:
     if not torch.equal(back, a):
         raise AssertionError("K4(K3(x)) != x")
     log("[phase 2] K4(K3(x)) == x")
+    ntt_path_shapes(crt, sets)
     return rows
+
+
+def ntt_shape(L: int, n: int) -> str:
+    from ace_tpu_torch.ops import ntt4
+    s = ntt4.launch_shape(L, n)
+    return (f"1 launch, grid {s['blocks']} blocks = {L} clusters of "
+            f"{s['cluster']} x {s['threads']} threads, "
+            f"{s['smem_bytes'] // 1024} KB dynamic smem per block, "
+            f"{s['resident_k3']}/{s['resident_k4']} clusters resident at "
+            f"once (K3/K4)")
+
+
+def ntt_path_shapes(crt, sets) -> None:
+    """K3 and K4 at the limb counts the slice launches at N = 2^15:
+    rescale's last q limb (1), the P limbs of mod-down (12) and the q
+    chain (34). Each is first held word for word against the plain
+    version and its round trip checked, then timed like phase 2 (4 input
+    sets; at 1 limb they all stay in L2)."""
+    import torch
+    from ace_tpu_torch.ops import kernels, ntt, ntt4
+    n = crt.degree
+    logn = n.bit_length() - 1
+    lib = kernels.lib("ntt")
+    st = kernels.stream_ptr(sets[0][0])
+    for what, rows in (("rescale's last q limb", [NUM_Q - 1]),
+                       ("the P limbs", list(range(NUM_Q, crt.num_q
+                                                  + crt.num_p))),
+                       ("the q chain", list(range(NUM_Q)))):
+        L = len(rows)
+        t = crt.tables_for(rows)
+        idx = torch.tensor(rows, device=crt.device)
+        xs = [x.index_select(0, idx) for x, _ in sets]
+        out = torch.empty_like(xs[0])
+        f = ntt4.ntt4_fwd(xs[0], t)
+        if not torch.equal(f, ntt.ntt_fwd_plain(xs[0], t)):
+            raise AssertionError(f"K3 at L = {L} differs from the plain "
+                                 f"version")
+        if not torch.equal(ntt4.ntt4_inv(xs[0], t),
+                           ntt.ntt_inv_plain(xs[0], t)):
+            raise AssertionError(f"K4 at L = {L} differs from the plain "
+                                 f"version")
+        if not torch.equal(ntt4.ntt4_inv(f, t), xs[0]):
+            raise AssertionError(f"K4(K3(x)) != x at L = {L}")
+        tp = {k: getattr(t, k).data_ptr() for k in (
+            "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
+            "n_inv_prec", "rows")}
+        raw = {
+            "K3": lambda i: lib.ace_k3_ntt_fwd(
+                xs[i % 4].data_ptr(), out.data_ptr(), tp["rou"],
+                tp["rou_prec"], tp["q"], tp["rows"], L, logn, st),
+            "K4": lambda i: lib.ace_k4_ntt_inv(
+                xs[i % 4].data_ptr(), out.data_ptr(), tp["rou_inv"],
+                tp["rou_inv_prec"], tp["q"], tp["n_inv"], tp["n_inv_prec"],
+                tp["rows"], L, logn, st),
+        }
+        msg = []
+        for key, f_raw in raw.items():
+            def launch(i, f=f_raw, what=f"{key} at L = {L}"):
+                kernels.check(f(i), what)
+            ms = time_ms(launch, reps=10, batch=20)
+            stages = logn + (2 if key == "K4" else 0)  # as in phase_kernels
+            b_ms, _ = bound(4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * stages)
+            msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms "
+                       f"({100 * b_ms / ms:.0f}%)")
+        log(f"[phase 2] L = {L} ({what}): K3, K4 exact, round trip exact; "
+            f"{'; '.join(msg)}; {ntt_shape(L, n)}")
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +425,13 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     t_inf = time.perf_counter() - t0
     launches = read_counters()
+    limbs = read_limbs()
     t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
     log(f"[phase 4] inference {t_inf:.1f} s, of which rotation-key "
         f"generation {t_keys:.1f} s ({TIMING.count('RTM_ROT_KEY_REGEN')} "
-        f"keys); launches {launches}")
+        f"keys); launches {launches}; NTT limbs {limbs} (mean "
+        + ", ".join(f"{k} {limbs[k] / max(launches[k], 1):.1f}"
+                    for k in limbs) + " limbs per launch)")
     log(TIMING.report())
 
     t0 = time.perf_counter()

@@ -62,10 +62,11 @@ def test_k1_k2_match_plain(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [64, 4096, 8192, 32768, 65536])
+@pytest.mark.parametrize("n", [1 << e for e in range(1, 18)])
 def test_k3_k4_match_plain(n):
-    """K3/K4 on the card == the plain ladders, on both sides of the
-    one-pass/two-pass split at N = 4096, on a gathered limb subset."""
+    """K3/K4 on the card == the plain ladders at every degree the
+    launcher takes (one block up to N = 2^11, clusters of 2, 4 and 8
+    blocks above), on a gathered limb subset, and K4(K3(x)) == x."""
     _card()
     primes = nt.generate_q_primes(4, 60, 56, n)
     tc = TN.gather_tables(TN.make_ntt_tables(primes, n, device="cpu"),
@@ -82,6 +83,76 @@ def test_k3_k4_match_plain(n):
                                   TM.to_numpy(TN.ntt_inv(f, tc)))
 
 
+@pytest.fixture(scope="module")
+def chain_2p15():
+    """A 46-prime chain at N = 2^15 (ResNet-20's 34 q + 12 P primes),
+    tables on the CPU and on the card."""
+    _card()
+    n = 1 << 15
+    primes = nt.generate_q_primes(46, 60, 56, n)
+    return (n, primes, TN.make_ntt_tables(primes, n, device="cpu"),
+            TN.make_ntt_tables(primes, n, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 12, 46])
+def test_k3_k4_path_limb_counts(chain_2p15, L):
+    """The limb counts the slice launches at N = 2^15 (rescale's 1 limb,
+    a digit or the P part's 12, the whole chain's 46), on a permuted row
+    subset of the full tables: word for word against the plain ladders,
+    and the round trip, including in place (input == output)."""
+    n, primes, tc_full, tg_full = chain_2p15
+    rows = np.random.default_rng(L).permutation(len(primes))[:L].tolist()
+    tc = TN.gather_tables(tc_full, rows)
+    tg = TN.gather_tables(tg_full, rows)
+    x = _residues([primes[i] for i in rows], n)
+    f = TN.ntt_fwd(x, tc)
+    fg = TN4.ntt4_fwd(x.cuda(), tg)
+    np.testing.assert_array_equal(TM.to_numpy(fg), TM.to_numpy(f))
+    ig = TN4.ntt4_inv(fg, tg)
+    np.testing.assert_array_equal(TM.to_numpy(ig), TM.to_numpy(x))
+    from ace_tpu_torch.ops import kernels
+    y = x.cuda()
+    lib = kernels.lib("ntt")
+    st = kernels.stream_ptr(y)
+    kernels.check(lib.ace_k3_ntt_fwd(
+        y.data_ptr(), y.data_ptr(), tg.rou.data_ptr(),
+        tg.rou_prec.data_ptr(), tg.q.data_ptr(), tg.rows.data_ptr(), L, 15,
+        st), "K3 in place")
+    np.testing.assert_array_equal(TM.to_numpy(y), TM.to_numpy(f))
+    kernels.check(lib.ace_k4_ntt_inv(
+        y.data_ptr(), y.data_ptr(), tg.rou_inv.data_ptr(),
+        tg.rou_inv_prec.data_ptr(), tg.q.data_ptr(), tg.n_inv.data_ptr(),
+        tg.n_inv_prec.data_ptr(), tg.rows.data_ptr(), L, 15, st),
+        "K4 in place")
+    np.testing.assert_array_equal(TM.to_numpy(y), TM.to_numpy(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 1 << 11, 1 << 15, 1 << 17])
+def test_k3_k4_one_launch_per_call(n):
+    """Each K3 or K4 call is one kernel launch (torch.profiler's CUDA
+    kernel events), with the launch shape the launcher reports."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    primes = nt.generate_q_primes(2, 60, 56, n)
+    t = TN.make_ntt_tables(primes, n, device="cuda")
+    x = _residues(primes, n).cuda()
+    TN4.ntt4_inv(TN4.ntt4_fwd(x, t), t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TN4.ntt4_inv(TN4.ntt4_fwd(x, t), t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    assert sum("ntt_cluster" in k for k in names) == 2, names
+    shape = TN4.launch_shape(2, n)
+    assert shape["blocks"] == 2 * shape["cluster"]
+    assert shape["smem_bytes"] * shape["cluster"] == 8 * n
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_bad_cuda_input():
     _card()
@@ -91,3 +162,27 @@ def test_wrappers_reject_bad_cuda_input():
         TPM.barrett_mul(x, x, q, q, q)
     with pytest.raises(TypeError):
         TPM.shoup_mul(x.float(), q, q, q)
+
+
+@pytest.mark.gpu
+def test_ntt_wrappers_raise_for_untaken_degree():
+    """N = 2^18 is beyond what the launcher takes (8 blocks of 128 KB):
+    the wrappers raise and launch nothing; no fallback runs."""
+    _card()
+    n = 1 << 18
+    t = TN.NttTables(*(torch.zeros((1, w), dtype=torch.int64,
+                                   device="cuda")
+                       for w in (1, n, n, n, n, 1, 1, 1, 1)),
+                     rows=torch.zeros(1, dtype=torch.int64, device="cuda"))
+    x = torch.zeros((1, n), dtype=torch.int64, device="cuda")
+    before = (TN4.ntt4_fwd.launches, TN4.ntt4_inv.launches)
+    with pytest.raises(ValueError):
+        TN4.ntt4_fwd(x, t)
+    with pytest.raises(ValueError):
+        TN4.ntt4_inv(x, t)
+    assert (TN4.ntt4_fwd.launches, TN4.ntt4_inv.launches) == before
+    from ace_tpu_torch.ops import kernels
+    rc = kernels.lib("ntt").ace_k3_ntt_fwd(
+        x.data_ptr(), x.data_ptr(), t.rou.data_ptr(), t.rou_prec.data_ptr(),
+        t.q.data_ptr(), t.rows.data_ptr(), 1, 18, kernels.stream_ptr(x))
+    assert rc != 0
