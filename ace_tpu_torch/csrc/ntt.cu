@@ -14,28 +14,30 @@
 // chip_smoke.py states). The design below moves each of those words
 // between device memory and the SMs once. What it then runs into is
 // integer issue: a butterfly's 64-bit Shoup product and two modular
-// corrections compile to about 58 SASS instructions (about 22 of them
-// IMAD), and every integer pipe of the SM is half rate, so the N/2 log2 N
-// butterflies at [46, 32768] need about 20 us of issue slots on 132 SMs
-// (scripts/torch_ntt_sweep.py --sass prints the mix; PERF.md has the
+// corrections compile to 37.5 SASS instructions (16.6 of them IMAD),
+// and the whole card runs them at about 0.55 T butterflies/s, so the
+// N/2 log2 N butterflies at [46, 32768] need about 20 us, more than the
+// bytes (scripts/torch_ntt_sweep.py: its probe's loop gives the count
+// and the rate, and it prints the kernels' SASS mix; PERF.md has the
 // times).
 //
 // One launch, one thread-block cluster per limb. The C = 2^LC blocks of
 // a cluster (grid (C, L)) each hold one contiguous chunk of M = N/C
 // words in dynamic shared memory, so together they hold the limb (N =
-// 2^15: 8 blocks of 32 KB; N = 2^17: 8 of 128 KB). Stage st of the
-// ladder pairs words N/2^(st+1) apart, so the first LC stages pair words
-// of different chunks; for a column j < M the C words {r*M + j} are
-// closed under them.
+// 2^15: 8 blocks of 32 KB, or 16 of 16 KB for a launch of a few limbs;
+// N = 2^17: 8 of 128 KB). Stage st of the ladder pairs words N/2^(st+1)
+// apart, so the first LC stages pair words of different chunks; for a
+// column j < M the C words {r*M + j} are closed under them.
 //   forward: each block loads M/C columns straight from device memory
 //            (a warp reads 32 consecutive words of each row), runs the LC
 //            cross-chunk stages in registers and scatters row r of each
 //            column into block r's shared memory (distributed shared
 //            memory); cluster.sync(); then the other log2 M stages on the
-//            block's own chunk, which it stores in consecutive words.
-//   inverse: the mirror image: load the chunk, run its log2 M stages
-//            (N^-1 folded into the first), cluster.sync(), gather the
-//            columns over DSMEM, run the LC cross-chunk stages and store.
+//            block's own chunk, which it stores as 16-byte vectors.
+//   inverse: the mirror image: load the chunk (16-byte vectors), run its
+//            log2 M stages (N^-1 folded into the first), cluster.sync(),
+//            gather the columns over DSMEM, run the LC cross-chunk stages
+//            and store.
 // Register radix: the in-chunk stages go in groups of up to K = 3; a
 // thread loads the 2^K words that a group's butterflies close over into
 // registers, runs all the group's stages on them and writes them back:
@@ -46,33 +48,24 @@
 // four 8-warp blocks share an SM (radix 16 needed 120-150 registers and
 // measured slower). Shared memory is swizzled (word i at slot
 // i ^ ((i >> K) & 15)), which keeps every 64-bit access of a half-warp on
-// 16 different bank pairs for every set stride the groups use.
+// 16 different bank pairs for every set stride the groups use, and maps
+// words i, i + 1 (i even) onto one aligned slot pair, so the 16-byte
+// accesses of the chunk loads and stores are conflict-free too.
 // tests/test_torch_ntt_schedule.py models this schedule in numpy.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include "modarith.cuh"
 
 namespace cg = cooperative_groups;
 
-// The launch-shape constants can be set with -D, for
-// scripts/torch_ntt_sweep.py's comparison of shapes; the library builds
-// with these values.
-#ifndef K
-#define K 3              // register radix: stages per shared-memory round
-#endif
-#define LOGN_MAX 17      // N up to 2^17: 8 blocks of 128 KB
-#ifndef LC_MAX
-#define LC_MAX 3         // clusters of up to 8 blocks (portable size)
-#endif
-#ifndef CHUNK_LOG
-#define CHUNK_LOG 11     // chunks of >= 2^11 words where N allows
-#endif
-#ifndef THREADS_MAX
-#define THREADS_MAX 256
-#endif
-#ifndef MIN_BLOCKS
-#define MIN_BLOCKS 4     // blocks per SM: __launch_bounds__ caps registers
-#endif                   // at 64, so 4 blocks of 8 warps fit on an SM
+constexpr int K = 3;            // register radix: stages per shared-memory round
+constexpr int LOGN_MAX = 17;    // N up to 2^17: 8 blocks of 128 KB
+constexpr int CHUNK_LOG = 11;   // chunks of >= 2^11 words where N allows
+constexpr int THREADS_MAX = 256;
+constexpr int MIN_BLOCKS = 4;   // blocks per SM: __launch_bounds__ caps
+                                // registers at 64, so 4 blocks of 8 warps
+                                // fit on an SM
 
 struct LimbArgs {
     const u64* rou;       // [Lfull, N] twiddles (inverse twiddles for K4)
@@ -84,6 +77,23 @@ struct LimbArgs {
 };
 
 __device__ __forceinline__ int swz(int i) { return i ^ ((i >> K) & 15); }
+
+// Words i and i + 1 (i even) of a swizzled chunk are the two halves of
+// one aligned slot pair, swapped where bit K of i is set: one 16-byte
+// shared-memory access moves both.
+__device__ __forceinline__ void ld_pair(const u64* s, int i, u64& a,
+                                        u64& b) {
+    const int sl = swz(i);
+    const ulonglong2 v = reinterpret_cast<const ulonglong2*>(s)[sl >> 1];
+    a = (sl & 1) ? v.y : v.x;
+    b = (sl & 1) ? v.x : v.y;
+}
+
+__device__ __forceinline__ void st_pair(u64* s, int i, u64 a, u64 b) {
+    const int sl = swz(i);
+    reinterpret_cast<ulonglong2*>(s)[sl >> 1] =
+        (sl & 1) ? make_ulonglong2(b, a) : make_ulonglong2(a, b);
+}
 
 // A block may touch another's shared memory only once that block runs:
 // the forward kernel arrives on the cluster barrier first thing and waits
@@ -108,6 +118,31 @@ __device__ __forceinline__ void gs_bfly(u64& x, u64& y, u64 w, u64 wp,
     const u64 s = add_mod(x, y, q);
     y = shoup_mul(sub_mod(x, y, q), w, wp, q);
     x = s;
+}
+
+// The LC cross-chunk stages on one column held in registers, x[r] the
+// word of row r: stage st reads twiddle (1 << st) + (lo >> (LC - st)),
+// loaded just before its butterflies so that only one stage's twiddles
+// hold registers beside the C words.
+template <bool INV, int LC>
+__device__ __forceinline__ void cross_stages(u64 (&x)[1 << LC],
+                                             const u64* w, const u64* wp,
+                                             u64 q) {
+    constexpr int C = 1 << LC;
+#pragma unroll
+    for (int k = 0; k < LC; ++k) {
+        const int st = INV ? LC - 1 - k : k;
+        const int h = C >> (st + 1);
+#pragma unroll
+        for (int jj = 0; jj < C / 2; ++jj) {
+            const int lo = (jj / h) * 2 * h + jj % h;
+            const int tw = (1 << st) + (lo >> (LC - st));
+            if (!INV)
+                ct_bfly(x[lo], x[lo + h], __ldg(w + tw), __ldg(wp + tw), q);
+            else
+                gs_bfly(x[lo], x[lo + h], __ldg(w + tw), __ldg(wp + tw), q);
+        }
+    }
 }
 
 // Stages [sa, sa + KK) on the block's chunk s (block b of the cluster).
@@ -188,10 +223,6 @@ __device__ __forceinline__ void run_group(int kk, u64* s, const u64* w,
             break;
     case 2: stage_group<INV, 2, FOLD>(s, w, wp, q, sa, logn, lc, b, ni, nip);
             break;
-#if K > 3
-    case 3: stage_group<INV, 3, FOLD>(s, w, wp, q, sa, logn, lc, b, ni, nip);
-            break;
-#endif
     default: stage_group<INV, K, FOLD>(s, w, wp, q, sa, logn, lc, b, ni,
                                        nip);
     }
@@ -200,8 +231,10 @@ __device__ __forceinline__ void run_group(int kk, u64* s, const u64* w,
 // The in-place case (in == out) is safe, so the data pointers are not
 // __restrict__: every word of a limb is read, by some block of its
 // cluster, before the cluster.sync() that precedes the first write.
-// Device-memory accesses are 8-byte words, consecutive across the
-// threads of a warp (fully used 32-byte sectors).
+// Device-memory accesses are consecutive across the threads of a warp:
+// 16-byte vectors of two words for the chunks, 8-byte words for the
+// columns (two columns a thread held 2C words in registers, spilled at
+// C = 8 and halved the threads at work at C = 16: slower, PERF.md).
 template <bool INV, int LC>
 __global__ void __launch_bounds__(THREADS_MAX, MIN_BLOCKS)
 ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
@@ -221,14 +254,6 @@ ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
     const u64* wp = t.rou_prec + g * n;
     const u64 q = t.q[g];
 
-    // twiddles of the LC cross-chunk stages: entries 1 .. C-1
-    u64 cw[C], cwp[C];
-#pragma unroll
-    for (int i = 1; i < C; ++i) {
-        cw[i] = __ldg(w + i);
-        cwp[i] = __ldg(wp + i);
-    }
-
     if (!INV) {
         cluster_arrive_relaxed();
         bool waited = false;
@@ -237,16 +262,7 @@ ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
             u64 x[C];
 #pragma unroll
             for (int r = 0; r < C; ++r) x[r] = src[r * M + j];
-#pragma unroll
-            for (int st = 0; st < LC; ++st) {
-                const int h = C >> (st + 1);
-#pragma unroll
-                for (int jj = 0; jj < C / 2; ++jj) {
-                    const int lo = (jj / h) * 2 * h + jj % h;
-                    const int tw = (1 << st) + (lo >> (LC - st));
-                    ct_bfly(x[lo], x[lo + h], cw[tw], cwp[tw], q);
-                }
-            }
+            cross_stages<false, LC>(x, w, wp, q);
             if (!waited) {
                 cluster_wait();
                 waited = true;
@@ -266,11 +282,18 @@ ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
             kk = K;
         }
         u64* d = dst + (long long)b * M;
-        for (int p = threadIdx.x; p < M; p += blockDim.x) d[p] = s[swz(p)];
+        for (int p = 2 * threadIdx.x; p < M; p += 2 * blockDim.x) {
+            u64 a, c;
+            ld_pair(s, p, a, c);
+            *reinterpret_cast<ulonglong2*>(d + p) = make_ulonglong2(a, c);
+        }
     } else {
         const u64 ni = t.ninv[g], nip = t.ninv_prec[g];
         const u64* c = src + (long long)b * M;
-        for (int p = threadIdx.x; p < M; p += blockDim.x) s[swz(p)] = c[p];
+        for (int p = 2 * threadIdx.x; p < M; p += 2 * blockDim.x) {
+            const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(c + p);
+            st_pair(s, p, v.x, v.y);
+        }
         __syncthreads();
         int hi = logn;
         while (hi > LC) {
@@ -291,16 +314,7 @@ ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
 #pragma unroll
             for (int r = 0; r < C; ++r)
                 x[r] = cluster.map_shared_rank(s, r)[swz(j)];
-#pragma unroll
-            for (int st = LC - 1; st >= 0; --st) {
-                const int h = C >> (st + 1);
-#pragma unroll
-                for (int jj = 0; jj < C / 2; ++jj) {
-                    const int lo = (jj / h) * 2 * h + jj % h;
-                    const int tw = (1 << st) + (lo >> (LC - st));
-                    gs_bfly(x[lo], x[lo + h], cw[tw], cwp[tw], q);
-                }
-            }
+            cross_stages<true, LC>(x, w, wp, q);
 #pragma unroll
             for (int r = 0; r < C; ++r) dst[r * M + j] = x[r];
         }
@@ -309,15 +323,8 @@ ntt_cluster(const u64* in, u64* out, LimbArgs t, int logn) {
     }
 }
 
-// Launch shape for L limbs of 2^logn words: cluster of 2^lc blocks, so
-// that a chunk holds 2^CHUNK_LOG words or more (one block below N =
-// 2^12, 8 blocks from N = 2^14), and threads enough for one set of 2^K
-// words each per group (32 to 256).
-static int cluster_log(int logn) {
-    const int lc = logn - CHUNK_LOG;
-    return lc < 0 ? 0 : (lc > LC_MAX ? LC_MAX : lc);
-}
-
+// Threads per block: one set of 2^K words each per stage group (32 to
+// 256).
 static int threads_for(int lm) {
     const int sets = lm > K ? 1 << (lm - K) : 1;
     return sets < 32 ? 32 : (sets > THREADS_MAX ? THREADS_MAX : sets);
@@ -367,36 +374,53 @@ static cudaError_t max_clusters(int logn, int* count) {
     return cudaOccupancyMaxActiveClusters(count, ntt_cluster<INV, LC>, &cfg);
 }
 
+// max_clusters, asked once per shape (0: the cluster does not fit).
+template <bool INV, int LC>
+static cudaError_t resident(int logn, int* count) {
+    static int known[LOGN_MAX + 1];  // count + 1; 0: not asked yet
+    if (known[logn] == 0) {
+        int nc = 0;
+        const cudaError_t e = max_clusters<INV, LC>(logn, &nc);
+        if (e != cudaSuccess) return e;
+        known[logn] = nc + 1;
+    }
+    *count = known[logn] - 1;
+    return cudaSuccess;
+}
+
 template <bool INV, int LC>
 static int launch(const u64* x, u64* y, LimbArgs t, int L, int logn,
                   cudaStream_t st) {
-    static int fits[LOGN_MAX + 1];  // 0 unchecked, 1 fits, -1 does not
-    if (fits[logn] == 0) {
-        int nc = 0;
-        const cudaError_t e = max_clusters<INV, LC>(logn, &nc);
-        if (e != cudaSuccess) return (int)e;
-        fits[logn] = nc > 0 ? 1 : -1;
-    }
-    if (fits[logn] < 0) return (int)cudaErrorInvalidConfiguration;
+    int nc = 0;
+    cudaError_t e = resident<INV, LC>(logn, &nc);
+    if (e == cudaSuccess && nc == 0) e = cudaErrorInvalidConfiguration;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    const cudaError_t e = prepare<INV, LC>(L, logn, st, &cfg, attr);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaLaunchKernelEx(&cfg, ntt_cluster<INV, LC>, x, y, t,
-                                   logn);
+    if (e == cudaSuccess) e = prepare<INV, LC>(L, logn, st, &cfg, attr);
+    if (e == cudaSuccess)
+        e = cudaLaunchKernelEx(&cfg, ntt_cluster<INV, LC>, x, y, t, logn);
+    return (int)e;
 }
 
-template <bool INV>
-static int clusters_at_once(int logn, int* count) {
-    switch (cluster_log(logn)) {
-    case 0: return (int)max_clusters<INV, 0>(logn, count);
-    case 1: return (int)max_clusters<INV, 1>(logn, count);
-    case 2: return (int)max_clusters<INV, 2>(logn, count);
-#if LC_MAX > 3
-    case 4: return (int)max_clusters<INV, 4>(logn, count);
-#endif
-    default: return (int)max_clusters<INV, 3>(logn, count);
-    }
+// Blocks per cluster, 2^lc, for L limbs of 2^logn words. A chunk holds
+// 2^CHUNK_LOG words or more: one block below N = 2^12, 8 from N = 2^14.
+// From N = 2^15 a launch of a few limbs takes clusters of 16, a
+// non-portable size, each spread over twice the SMs of a cluster of 8,
+// as long as all L of them fit at one block per SM: L <= (clusters of 16
+// resident at MIN_BLOCKS blocks per SM) / MIN_BLOCKS, 28 / 4 = 7 on an
+// H100, one per GPC of 16 SMs or more. There that took 1 to 7 limbs from
+// 0.015 to 0.011 ms and nothing off 8 limbs (PERF.md).
+static cudaError_t cluster_log(int L, int logn, int* lc) {
+    const int c = logn - CHUNK_LOG;
+    *lc = c < 0 ? 0 : (c > 3 ? 3 : c);
+    if (c < 4) return cudaSuccess;
+    int k3 = 0, k4 = 0;
+    cudaError_t e;
+    if ((e = resident<false, 4>(logn, &k3)) != cudaSuccess ||
+        (e = resident<true, 4>(logn, &k4)) != cudaSuccess)
+        return e;
+    if (L * MIN_BLOCKS <= (k3 < k4 ? k3 : k4)) *lc = 4;
+    return cudaSuccess;
 }
 
 template <bool INV>
@@ -404,32 +428,42 @@ static int dispatch(const void* x, void* y, LimbArgs t, int L, int logn,
                     void* stream) {
     if (logn < 1 || logn > LOGN_MAX || L < 1 || L > 65535)
         return (int)cudaErrorInvalidValue;
-    const u64* in = (const u64*)x;
-    u64* out = (u64*)y;
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (cluster_log(logn)) {
-    case 0: return launch<INV, 0>(in, out, t, L, logn, st);
-    case 1: return launch<INV, 1>(in, out, t, L, logn, st);
-    case 2: return launch<INV, 2>(in, out, t, L, logn, st);
-#if LC_MAX > 3
-    case 4: return launch<INV, 4>(in, out, t, L, logn, st);
-#endif
-    default: return launch<INV, 3>(in, out, t, L, logn, st);
-    }
+    if (((uintptr_t)x | (uintptr_t)y) & 15)  // 16-byte vector accesses
+        return (int)cudaErrorMisalignedAddress;
+    int lc = 0;
+    const cudaError_t e = cluster_log(L, logn, &lc);
+    if (e != cudaSuccess) return (int)e;
+    static int (*const by_lc[])(const u64*, u64*, LimbArgs, int, int,
+                                cudaStream_t) = {
+        launch<INV, 0>, launch<INV, 1>, launch<INV, 2>, launch<INV, 3>,
+        launch<INV, 4>};
+    return by_lc[lc]((const u64*)x, (u64*)y, t, L, logn,
+                     (cudaStream_t)stream);
 }
 
 // The launch shape K3/K4 use for [L, 2^logn]: out = {cluster blocks,
 // threads per block, dynamic shared memory bytes per block, grid blocks,
 // K3 clusters resident at once, K4 clusters resident at once}.
 extern "C" int ace_ntt_shape(int L, int logn, int* out) {
-    if (logn < 1 || logn > LOGN_MAX) return (int)cudaErrorInvalidValue;
-    const int lc = cluster_log(logn);
+    if (logn < 1 || logn > LOGN_MAX || L < 1)
+        return (int)cudaErrorInvalidValue;
+    int lc = 0;
+    cudaError_t e = cluster_log(L, logn, &lc);
+    if (e != cudaSuccess) return (int)e;
+    static cudaError_t (*const k3[])(int, int*) = {
+        max_clusters<false, 0>, max_clusters<false, 1>,
+        max_clusters<false, 2>, max_clusters<false, 3>,
+        max_clusters<false, 4>};
+    static cudaError_t (*const k4[])(int, int*) = {
+        max_clusters<true, 0>, max_clusters<true, 1>, max_clusters<true, 2>,
+        max_clusters<true, 3>, max_clusters<true, 4>};
     out[0] = 1 << lc;
     out[1] = threads_for(logn - lc);
     out[2] = (int)(sizeof(u64) << (logn - lc));
     out[3] = L << lc;
-    const int e = clusters_at_once<false>(logn, out + 4);
-    return e ? e : clusters_at_once<true>(logn, out + 5);
+    e = k3[lc](logn, out + 4);
+    if (e == cudaSuccess) e = k4[lc](logn, out + 5);
+    return (int)e;
 }
 
 extern "C" int ace_k3_ntt_fwd(const void* x, void* y, const void* rou,

@@ -4,11 +4,14 @@ K3 `ntt4_fwd` replaces ace_tpu/ops/ntt4.py ntt4_fwd, K4 `ntt4_inv`
 replaces ntt4.py ntt4_inv. The CUDA source is csrc/ntt.cu: one launch
 per transform, one thread-block cluster per limb whose blocks together
 hold the limb in shared memory, so each word is read from and written to
-device memory once; its note gives the design and the bound. The kernels
-read the same tables as the 1-step ladders (ops/ntt.py NttTables,
-indexed by `rows`), so the TPU kernel's four-step diagonal and u32-plane
-tables have no counterpart here. N runs from 2 to 2^17 (LOGN_MAX); any
-other degree raises.
+device memory once; its note gives the design and the bound. The
+launcher picks the cluster from (L, N): 8 blocks at N = 2^15 for most
+launches, 16 for a launch of a few limbs. The kernels read the same
+tables as the 1-step ladders (ops/ntt.py NttTables, indexed by `rows`),
+so the TPU kernel's four-step diagonal and u32-plane tables have no
+counterpart here. N runs from 2 to 2^17 (LOGN_MAX); any other degree
+raises, and so does data that does not start on a 16-byte boundary (the
+kernels move it as 16-byte vectors).
 
 Each wrapper takes the plain version (ops/ntt.py ntt_fwd_plain /
 ntt_inv_plain) only for tensors on the CPU; for CUDA tensors it launches
@@ -41,7 +44,11 @@ def _prep(x: torch.Tensor, t: "_ntt.NttTables"):
     if n < 2 or n & (n - 1) or n > 1 << LOGN_MAX:
         raise ValueError(f"degree {n} is not a power of two in "
                          f"[2, 2^{LOGN_MAX}]")
-    return x.contiguous(), n.bit_length() - 1
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("K3/K4 move data as 16-byte vectors: the tensor "
+                         "must start on a 16-byte boundary")
+    return x, n.bit_length() - 1
 
 
 def launch_shape(L: int, n: int) -> dict:

@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time kernels K3/K4 (ace_tpu_torch/csrc/ntt.cu) under launch-shape
-variants on one CUDA card, at N = 2^15 and the slice's limb counts.
+"""Time kernels K3/K4 (ace_tpu_torch/csrc/ntt.cu) on one CUDA card at
+N = 2^15 over a range of limb counts, and show what bounds them.
 
-    python3 scripts/torch_ntt_sweep.py [--variants default,C4,...] [--sass]
+    python3 scripts/torch_ntt_sweep.py [--limbs 1,2,4,8,9,12,34,46] [--sass]
 
-Each variant is ntt.cu built with -D overrides of its launch-shape
-constants (one nvcc per variant, all in parallel, into
-build/ntt_sweep/); `default` is the library's own shape. For each
-variant and limb count L, K3 and K4 are held word for word against the
-plain ladders, then timed two ways:
-  host    CUDA events around 20 back-to-back launches through the C
-          launcher, cycling over 4 input sets, median of 10 (as
-          chip_smoke.py phase 2 times them);
-  device  torch.profiler's duration of the kernel itself, mean over 40
-          launches.
+Prints the card's `name, power.limit` first, then:
+  [ptxas]  registers and spill stores of every K3/K4 instantiation
+           (ntt.cu built with the library's flags and -Xptxas -v);
+  [sass]   with --sass, the SASS opcode mix of the library's N = 2^15
+           kernels (clusters of 8 and of 16);
+  [probe]  a butterfly ceiling: the same Shoup butterflies
+           (csrc/modarith.cuh) on 8 words held in registers, 3 stages a
+           round as in a radix-8 group, no memory traffic, no barriers;
+           its rate over a full card, the time it implies for the
+           butterflies of one [46, 2^15] transform, and the SASS
+           instructions of its loop per butterfly;
+  one line per (L, kernel): the library's launch (the shape its launcher
+  picks for L limbs), held word for word against the plain ladder, then
+  timed two ways:
+    host    CUDA events around 20 back-to-back launches through the C
+            launcher, cycling over 4 input sets, median of 10 (as
+            chip_smoke.py phase 2 times them);
+    device  torch.profiler's duration of the kernel itself, mean over 40
+            launches.
 Where host is well above device, the rate at which the host issues
-launches sets the time, not the kernel. Prints the card's
-`name, power.limit` first, each variant's registers and spills
-(-Xptxas -v), with --sass the SASS opcode mix of its N = 2^15 kernels,
-and one line per (variant, L, kernel).
+launches sets the time, not the kernel.
 """
 
 from __future__ import annotations
@@ -36,79 +42,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-VARIANTS = {
-    "default": [],                 # radix 8, <= 64 registers, C = 8
-    "K4-mb1": ["-DK=4", "-DMIN_BLOCKS=1"],   # radix 16, registers free
-    "K4-mb2": ["-DK=4", "-DMIN_BLOCKS=2"],   # radix 16, <= 128 registers
-    "mb3": ["-DMIN_BLOCKS=3"],               # <= 80 registers
-    "C4": ["-DCHUNK_LOG=13"],                # 4 blocks of 64 KB
-    "C16": ["-DLC_MAX=4"],                   # 16 blocks of 16 KB
-    "C8-t128": ["-DTHREADS_MAX=128", "-DMIN_BLOCKS=8"],
-    "C16-t128": ["-DLC_MAX=4", "-DTHREADS_MAX=128", "-DMIN_BLOCKS=8"],
-}
-LIMBS = (1, 12, 34, 46)  # the slice's limb counts (--limbs adds others)
+LIMBS = (1, 2, 4, 8, 9, 12, 34, 46)  # the slice launches 1, 12, 34, 46
 HBM_BYTES_PER_S = 3.35e12  # chip_smoke.py's bound, bytes side
 
-
-def build(names):
-    from ace_tpu_torch.ops import kernels
-    out_dir = os.path.join(kernels.build_dir(), "ntt_sweep")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in names:
-        so = os.path.join(out_dir, f"libntt-{name}.so")
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
-               *VARIANTS[name], "-o", so,
-               os.path.join(kernels.CSRC, "ntt.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc {name} failed:\n{text}")
-        regs = re.findall(r"ntt_clusterILb(\d)ELi(\d)E.*?(\d+) bytes spill "
-                          r"stores.*?Used (\d+) registers", text, re.S)
-        print(f"[{name}] registers (spill stores): " + ", ".join(
-            f"{'K4' if inv == '1' else 'K3'} LC={lc}: {r} ({sp} B)"
-            for inv, lc, sp, r in regs), flush=True)
-        lib = ctypes.CDLL(so)
-        for fn, argtypes in kernels._SIGNATURES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def sass_mix(so: str) -> None:
-    """Opcode histogram of the LC = 3 kernels (cuobjdump -sass): the
-    instruction mix that bounds an integer-heavy kernel's issue rate."""
-    from ace_tpu_torch.ops import kernels
-    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                          text=True, timeout=300).stdout
-    for fn in re.split(r"\n\s*Function : ", text)[1:]:
-        name = fn.split()[0]
-        m = re.match(r"_Z11ntt_clusterILb(\d)ELi3E", name)
-        if not m:
-            continue
-        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)", fn)
-        hist = {}
-        for op in ops:
-            hist[op] = hist.get(op, 0) + 1
-        top = sorted(hist.items(), key=lambda kv: -kv[1])[:14]
-        print(f"[sass] {'K4' if m.group(1) == '1' else 'K3'} LC=3: "
-              f"{len(ops)} instructions; "
-              + ", ".join(f"{k} {v}" for k, v in top), flush=True)
-
-
-# The butterfly ceiling: the same Shoup butterflies (csrc/modarith.cuh)
-# on 8 words held in registers, 3 stages per round as in a radix-8
-# group, no memory traffic and no barriers. Times R rounds over a full
-# card of 64-register threads.
+# The butterfly ceiling: R rounds of 12 butterflies over a full card of
+# 64-register threads; the round loop is kept rolled so that its SASS is
+# one round.
 PROBE_CU = r"""
 #include "modarith.cuh"
 __global__ void __launch_bounds__(256, 4)
@@ -119,6 +58,7 @@ bfly_probe(u64* out, const u64* w, const u64* wp, u64 q, int rounds) {
         W[i] = w[i];
         WP[i] = wp[i];
     }
+#pragma unroll 1
     for (int it = 0; it < rounds; ++it) {
 #pragma unroll
         for (int st = 0; st < 3; ++st) {
@@ -146,19 +86,108 @@ extern "C" int probe(void* out, const void* w, const void* wp, u64 q,
 """
 
 
-def butterfly_ceiling(t, butterflies: int) -> None:
-    """Print the probe's butterfly rate and the time it implies for
-    `butterflies` (the count of one [46, 2^15] transform)."""
-    import torch
+def sweep_dir() -> str:
     from ace_tpu_torch.ops import kernels
-    out_dir = os.path.join(kernels.build_dir(), "ntt_sweep")
-    src = os.path.join(out_dir, "bfly_probe.cu")
-    so = os.path.join(out_dir, "libbfly_probe.so")
+    out = os.path.join(kernels.build_dir(), "ntt_sweep")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def compile_aux() -> str:
+    """Build ntt.cu with -Xptxas -v (printing its registers) and the
+    probe, both in parallel; returns the probe's library."""
+    from ace_tpu_torch.ops import kernels
+    d = sweep_dir()
+    src = os.path.join(d, "bfly_probe.cu")
     with open(src, "w") as f:
         f.write(PROBE_CU)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
-                    kernels.CSRC, "-o", so, src], check=True)
-    lib = ctypes.CDLL(so)
+    probe_so = os.path.join(d, "libbfly_probe.so")
+    ptxas = subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(d, "libntt_v.so"), os.path.join(kernels.CSRC, "ntt.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+                    "-o", probe_so, src], check=True)
+    text, _ = ptxas.communicate()
+    if ptxas.returncode:
+        raise RuntimeError(f"nvcc ntt.cu failed:\n{text}")
+    regs = re.findall(r"ntt_clusterILb(\d)ELi(\d)E.*?(\d+) bytes spill "
+                      r"stores.*?Used (\d+) registers", text, re.S)
+    print("[ptxas] registers (spill stores): " + ", ".join(
+        f"{'K4' if inv == '1' else 'K3'} C={1 << int(lc)}: {r} ({sp} B)"
+        for inv, lc, sp, r in regs), flush=True)
+    return probe_so
+
+
+def sass(so: str) -> str:
+    from ace_tpu_torch.ops import kernels
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def functions(text: str):
+    """(name, [(address, opcode, operands)], {label: index}) per kernel."""
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        instrs, labels = [], {}
+        for ln in fn.splitlines()[1:]:
+            m = re.match(r"\s*(\.L_x_\d+):", ln)
+            if m:
+                labels[m.group(1)] = len(instrs)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)([^;]*)", ln)
+            if m:
+                instrs.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        yield fn.split()[0], instrs, labels
+
+
+def opcode_mix(so: str) -> None:
+    """Opcode histogram of the library's N = 2^15 kernels (clusters of 8
+    and 16): the instruction mix that bounds an integer-heavy kernel."""
+    for name, instrs, _ in functions(sass(so)):
+        m = re.match(r"_Z11ntt_clusterILb(\d)ELi([34])E", name)
+        if not m:
+            continue
+        hist = {}
+        for _, op, _ in instrs:
+            hist[op] = hist.get(op, 0) + 1
+        top = sorted(hist.items(), key=lambda kv: -kv[1])[:14]
+        print(f"[sass] {'K4' if m.group(1) == '1' else 'K3'} "
+              f"C={1 << int(m.group(2))}: {len(instrs)} instructions; "
+              + ", ".join(f"{k} {v}" for k, v in top), flush=True)
+
+
+def loop_body(instrs, labels):
+    """The longest backward branch's body: the probe's round loop."""
+    at = {a: i for i, (a, _, _) in enumerate(instrs)}
+    best = []
+    for i, (_, op, rest) in enumerate(instrs):
+        if op != "BRA":
+            continue
+        m = re.search(r"(\.L_x_\d+)", rest)
+        h = re.search(r"0x([0-9a-f]+)", rest)
+        tgt = labels.get(m.group(1)) if m else (
+            at.get(int(h.group(1), 16)) if h else None)
+        if tgt is not None and tgt <= i and i + 1 - tgt > len(best):
+            best = instrs[tgt:i + 1]
+    return best
+
+
+def butterfly_ceiling(probe_so: str, t, butterflies: int) -> None:
+    """Print the probe's instructions per butterfly, its butterfly rate
+    and the time that rate implies for `butterflies`."""
+    import torch
+    from ace_tpu_torch.ops import kernels
+    for name, instrs, labels in functions(sass(probe_so)):
+        if "bfly_probe" in name:
+            body = loop_body(instrs, labels)
+            imad = sum(op == "IMAD" for _, op, _ in body)
+            print(f"[probe] SASS loop of 12 butterflies: {len(body)} "
+                  f"instructions ({len(body) / 12:.1f} per butterfly, loop "
+                  f"control included), IMAD {imad} ({imad / 12:.1f} per "
+                  f"butterfly)", flush=True)
+    lib = ctypes.CDLL(probe_so)
     lib.probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_ulonglong,
                                                   ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_void_p]
@@ -212,11 +241,10 @@ def device_ms(fn, count=40):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--limbs", default=",".join(map(str, LIMBS)),
                     help="limb counts; beyond 46 the chain's rows repeat")
     ap.add_argument("--sass", action="store_true",
-                    help="print each variant's SASS opcode mix")
+                    help="print the kernels' SASS opcode mix")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -226,16 +254,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    from ace_tpu_torch.ops import kernels, modops, ntt
+    from ace_tpu_torch.ops import kernels, modops, ntt, ntt4
     from ace_tpu_torch.poly.rns import CrtContext
-    names = args.variants.split(",")
-    libs = build(names)
+    kernels.build_all()
+    probe_so = compile_aux()
     if args.sass:
-        from ace_tpu_torch.ops import kernels
-        for name in names:
-            print(f"[{name}]", flush=True)
-            sass_mix(os.path.join(kernels.build_dir(), "ntt_sweep",
-                                  f"libntt-{name}.so"))
+        opcode_mix(kernels._lib_path("ntt"))
+    lib = kernels.lib("ntt")
     crt = CrtContext(34, 60, 56, 32768, 3, device="cuda")
     primes = crt.all_primes
     n = crt.degree
@@ -246,7 +271,8 @@ def main() -> int:
             for _ in range(4)]
     chains = {1: [33], 12: list(range(34, 46)), 34: list(range(34)),
               46: list(range(46))}
-    butterfly_ceiling(crt.tables_for(range(46)), 46 * (n // 2) * logn)
+    butterfly_ceiling(probe_so, crt.tables_for(range(46)),
+                      46 * (n // 2) * logn)
     for L in map(int, args.limbs.split(",")):
         rows = chains.get(L, [i % 46 for i in range(L)])
         t = crt.tables_for(rows)
@@ -260,35 +286,33 @@ def main() -> int:
             "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
             "n_inv_prec", "rows")}
         bound = 4 * L * n * 8 / HBM_BYTES_PER_S * 1e3
-        for name in names:
-            lib = libs[name]
-            raw = {
-                "K3": lambda i, lib=lib: lib.ace_k3_ntt_fwd(
-                    xs[i % 4].data_ptr(), out.data_ptr(), p["rou"],
-                    p["rou_prec"], p["q"], p["rows"], L, logn, st),
-                "K4": lambda i, lib=lib: lib.ace_k4_ntt_inv(
-                    xs[i % 4].data_ptr(), out.data_ptr(), p["rou_inv"],
-                    p["rou_inv_prec"], p["q"], p["n_inv"], p["n_inv_prec"],
-                    p["rows"], L, logn, st),
-            }
-            shape = (ctypes.c_int * 6)()
-            kernels.check(lib.ace_ntt_shape(L, logn, shape), "shape")
-            for key, f in raw.items():
-                def launch(i, f=f, what=f"{name} {key} L={L}"):
-                    kernels.check(f(i), what)
-                launch(0)
-                torch.cuda.synchronize()
-                if not torch.equal(out, want[key]):
-                    raise AssertionError(f"{name} {key} L={L} differs from "
-                                         f"the plain version")
-                h = host_ms(launch)
-                d = device_ms(launch)
-                print(f"{name:14s} L={L:2d} {key}: host {h:.4f} ms, device "
-                      f"{d:.4f} ms, bound {bound:.4f} ms ({100 * bound / d:.0f}"
-                      f"% of it on device); cluster {shape[0]} x "
-                      f"{shape[1]} threads, {shape[2] // 1024} KB, "
-                      f"{shape[4]}/{shape[5]} clusters resident (K3/K4)",
-                      flush=True)
+        raw = {
+            "K3": lambda i: lib.ace_k3_ntt_fwd(
+                xs[i % 4].data_ptr(), out.data_ptr(), p["rou"],
+                p["rou_prec"], p["q"], p["rows"], L, logn, st),
+            "K4": lambda i: lib.ace_k4_ntt_inv(
+                xs[i % 4].data_ptr(), out.data_ptr(), p["rou_inv"],
+                p["rou_inv_prec"], p["q"], p["n_inv"], p["n_inv_prec"],
+                p["rows"], L, logn, st),
+        }
+        shape = ntt4.launch_shape(L, n)
+        for key, f in raw.items():
+            def launch(i, f=f, what=f"{key} L={L}"):
+                kernels.check(f(i), what)
+            launch(0)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want[key]):
+                raise AssertionError(f"{key} L={L} differs from the plain "
+                                     f"version")
+            h = host_ms(launch)
+            d = device_ms(launch)
+            print(f"L={L:2d} {key}: host {h:.4f} ms, device {d:.4f} ms, "
+                  f"bound {bound:.4f} ms ({100 * bound / d:.0f}% of it on "
+                  f"device); cluster {shape['cluster']} x "
+                  f"{shape['threads']} threads, "
+                  f"{shape['smem_bytes'] // 1024} KB, "
+                  f"{shape['resident_k3']}/{shape['resident_k4']} clusters "
+                  f"resident (K3/K4)", flush=True)
     return 0
 
 

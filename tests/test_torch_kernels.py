@@ -66,7 +66,8 @@ def test_k1_k2_match_plain(shape):
 def test_k3_k4_match_plain(n):
     """K3/K4 on the card == the plain ladders at every degree the
     launcher takes (one block up to N = 2^11, clusters of 2, 4 and 8
-    blocks above), on a gathered limb subset, and K4(K3(x)) == x."""
+    blocks above, 16 from 2^15 for these 3 limbs), on a gathered limb
+    subset, and K4(K3(x)) == x."""
     _card()
     primes = nt.generate_q_primes(4, 60, 56, n)
     tc = TN.gather_tables(TN.make_ntt_tables(primes, n, device="cpu"),
@@ -145,12 +146,58 @@ def test_k3_k4_one_launch_per_call(n):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not names:
-        pytest.skip("the profiler recorded no device activity")
+    assert names, "the profiler recorded no device activity"
     assert sum("ntt_cluster" in k for k in names) == 2, names
     shape = TN4.launch_shape(2, n)
     assert shape["blocks"] == 2 * shape["cluster"]
     assert shape["smem_bytes"] * shape["cluster"] == 8 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17])
+def test_k3_k4_cluster_of_16_and_of_8(n):
+    """Around the launcher's switch between clusters (csrc/ntt.cu
+    cluster_log): 16 blocks for as many limbs as clusters of 16 fit at
+    one block per SM (those resident at 4 blocks per SM, over 4), 8 from
+    one limb more; both word for word against the plain ladders on the
+    card, and the round trip."""
+    _card()
+    one = TN4.launch_shape(1, n)
+    assert one["cluster"] == 16
+    most = min(one["resident_k3"], one["resident_k4"]) // 4
+    assert most >= 1
+    primes = nt.generate_q_primes(most + 1, 60, 56, n)
+    tg_full = TN.make_ntt_tables(primes, n, device="cuda")
+    for L, cluster in ((most, 16), (most + 1, 8)):
+        assert TN4.launch_shape(L, n)["cluster"] == cluster
+        rows = list(range(L))[::-1]
+        tg = TN.gather_tables(tg_full, rows)
+        x = _residues([primes[i] for i in rows], n).cuda()
+        f = TN4.ntt4_fwd(x, tg)
+        assert torch.equal(f, TN.ntt_fwd_plain(x, tg))
+        assert torch.equal(TN4.ntt4_inv(x, tg), TN.ntt_inv_plain(x, tg))
+        assert torch.equal(TN4.ntt4_inv(f, tg), x)
+
+
+@pytest.mark.gpu
+def test_ntt_wrappers_raise_for_misaligned_data():
+    """K3/K4 move 16-byte vectors: data that starts 8 bytes off a 16-byte
+    boundary raises in the wrapper, and the C launcher refuses it."""
+    _card()
+    n = 1 << 12
+    primes = nt.generate_q_primes(1, 60, 56, n)
+    t = TN.make_ntt_tables(primes, n, device="cuda")
+    x = torch.zeros(n + 1, dtype=torch.int64, device="cuda")[1:].view(1, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    with pytest.raises(ValueError):
+        TN4.ntt4_fwd(x, t)
+    with pytest.raises(ValueError):
+        TN4.ntt4_inv(x, t)
+    from ace_tpu_torch.ops import kernels
+    rc = kernels.lib("ntt").ace_k3_ntt_fwd(
+        x.data_ptr(), x.data_ptr(), t.rou.data_ptr(), t.rou_prec.data_ptr(),
+        t.q.data_ptr(), t.rows.data_ptr(), 1, 12, kernels.stream_ptr(x))
+    assert rc != 0
 
 
 @pytest.mark.gpu

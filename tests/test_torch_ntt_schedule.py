@@ -8,8 +8,11 @@ the swizzled shared-memory slot of every word, and the twiddle index of
 every butterfly. Its arithmetic is the port's plain modops, so a wrong
 index shows here as a wrong residue. It also checks what the kernel's
 speed rests on: every word is loaded and stored once, every twiddle
-entry 1 .. N-1 is read, and no half-warp's 64-bit shared-memory access
-falls twice on one bank pair.
+entry 1 .. N-1 is read, no half-warp's 64-bit shared-memory access
+falls twice on one bank pair, and the chunk loads and stores move
+words i, i + 1 (i even) as one 16-byte vector: in device memory and in
+one aligned slot pair of shared memory, with no quarter-warp falling
+twice on one group of four banks.
 """
 
 import numpy as np
@@ -75,6 +78,19 @@ class Schedule:
 
     def slot(self, i):
         return swz(i, self.k)
+
+    def pair_slots(self, j):
+        """j [npairs], even: the words j, j + 1 that one thread moves as a
+        16-byte vector (csrc/ntt.cu ld_pair / st_pair); consecutive pairs
+        on consecutive threads. Returns the slot-pair index of each."""
+        j = np.asarray(j)
+        assert (j % 2 == 0).all()
+        lo, hi = self.slot(j), self.slot(j + 1)
+        np.testing.assert_array_equal(lo ^ 1, hi)
+        ps = lo >> 1
+        for h in range(0, len(ps) - len(ps) % 8, 8):
+            assert len(set((ps[h:h + 8] % 8).tolist())) == 8, ps[h:h + 8]
+        return ps
 
     def bfly(self, inv, x, y, w, wp):
         q = self.q
@@ -155,14 +171,14 @@ class Schedule:
                 for b in range(C):
                     self.group(False, S, b, sa, kk)
             p = np.arange(M)
-            self.check_banks(self.slot(p))
+            self.pair_slots(p[::2])
             for b in range(C):
                 out[:, torch.as_tensor(b * M + p)] = \
                     S[b][:, torch.as_tensor(self.slot(p))]
                 self.stores.append(b * M + p)
         else:
             p = np.arange(M)
-            self.check_banks(self.slot(p))
+            self.pair_slots(p[::2])
             for b in range(C):
                 S[b][:, torch.as_tensor(self.slot(p))] = \
                     x[:, torch.as_tensor(b * M + p)]
@@ -196,9 +212,15 @@ def _each_word_once(idx, n):
     np.testing.assert_array_equal(got, np.arange(n))
 
 
+def _params():
+    """(logn, lc) at N = 64 .. 4096: clusters of 1, 2 and 4 blocks
+    throughout, and of 8 and 16 where a block has 16 columns or more."""
+    out = [(logn, lc) for logn in (6, 8, 10, 12) for lc in (0, 1, 2)]
+    return out + [(10, 3), (12, 3), (12, 4)]
+
+
 @pytest.mark.parametrize("k", [3, 4])
-@pytest.mark.parametrize("lc", [0, 1, 2])
-@pytest.mark.parametrize("logn", [6, 8, 10, 12])
+@pytest.mark.parametrize("logn,lc", _params())
 def test_schedule_matches_plain(logn, lc, k):
     n = 1 << logn
     t, x = _case(n)
@@ -221,15 +243,21 @@ def test_schedule_matches_plain(logn, lc, k):
 
 
 def test_launch_schedule_at_full_size_bank_free():
-    """The kernel's own choice at N = 2^15 (8 blocks of 4096 words, radix
-    2^K) and at 2^17 (8 of 16384): swizzled slots form a permutation of
-    the chunk and every group's half-warp access is conflict-free. Index
-    arithmetic only; the residues are checked at small N above."""
-    for logn in (15, 17):
-        lc, k = 3, K
+    """The kernel's own shapes from N = 2^15 to 2^17 (clusters of 8, and
+    of 16 for a launch of a few limbs; radix 2^K): swizzled slots form a
+    permutation of the chunk, every group's half-warp access is
+    conflict-free, and so is every 16-byte access of the chunk loads
+    and stores. Index arithmetic only; the residues are checked at small N
+    above."""
+    for logn, lc in ((15, 3), (15, 4), (16, 3), (16, 4), (17, 3), (17, 4)):
+        k = K
         M = 1 << (logn - lc)
         p = np.arange(M)
         np.testing.assert_array_equal(np.sort(swz(p)), p)
+        lo, hi = swz(p[::2]), swz(p[1::2])
+        np.testing.assert_array_equal(lo ^ 1, hi)
+        assert all(len(set((lo[h:h + 8] >> 1) % 8)) == 8
+                   for h in range(0, len(lo), 8))
         for sa, kk in groups(lc, logn, k):
             ls = logn - sa - kk
             u = np.arange(M >> kk)
