@@ -14,8 +14,10 @@ Exact-semantics sources (file:line in the reference):
   rescale:           ckks_evaluator.c:309-329 (+ scale bookkeeping)
   hybrid keyswitch:  ckks_evaluator.c:391-461 (digit MACs in QP basis,
                      then mod-down); digits via Decompose/Raise
-  rotate:            ckks_evaluator.c:507-545 (keyswitch c1, add c0,
-                     then automorphism of both outputs)
+  rotate/conjugate:  ckks_evaluator.c:507-545 (keyswitch c1, add c0,
+                     then automorphism of both outputs; 2N-1 conjugates)
+  mul_by_monomial:   ckks_evaluator.c:228-256
+  bsgs_iter_jit:     ckks_bootstrap_context.c:1237-1383 (Rotate_iteration)
 """
 
 from __future__ import annotations
@@ -149,6 +151,22 @@ class Evaluator:
                           P.mul_scalars(a.c1, scalars, self.crt),
                           a.scaling_factor, a.sf_degree, a.slots)
 
+    def mul_by_monomial(self, a: Ciphertext, power: int) -> Ciphertext:
+        """Multiply by x^power (ckks_evaluator.c:228-256): the monomial's
+        coefficient residues (1, or q-1 past the negacyclic wrap) are
+        written on the device, then NTT'd and multiplied in."""
+        crt = self.crt
+        n = a.c0.degree
+        index = power % n
+        vals = [1 if power % (2 * n) < n else q - 1
+                for q in crt.q_primes[:a.level]]
+        data = torch.zeros((a.level, n), dtype=torch.int64,
+                           device=a.c0.data.device)
+        data[:, index:index + 1] = crt.column(vals)
+        mono = P.to_ntt(RnsPoly(data, a.level, 0, False), crt)
+        return Ciphertext(P.mul(a.c0, mono, crt), P.mul(a.c1, mono, crt),
+                          a.scaling_factor, a.sf_degree, a.slots)
+
     # -- multiplication / relinearization -------------------------------
 
     def mul3(self, a: Ciphertext, b: Ciphertext) -> Ciphertext3:
@@ -226,7 +244,14 @@ class Evaluator:
         (Fast_rotate, ckks_evaluator.c:507-545)."""
         if rotation == 0:
             return a
-        auto_idx, key = self.keygen.rot_key(rotation)
+        return self._key_switch_auto(a, *self.keygen.rot_key(rotation))
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        """Conjugation: key switch, then automorphism 2N-1, as rotate."""
+        return self._key_switch_auto(a, *self.keygen.conj_key())
+
+    def _key_switch_auto(self, a: Ciphertext, auto_idx: int,
+                         key: SwitchKey) -> Ciphertext:
         crt = self.crt
         s0, s1 = self._switch_key(key, a.c1)
         t0 = P.add(s0, a.c0, crt)
@@ -323,12 +348,28 @@ class Evaluator:
                           ct0.scaling_factor, ct0.sf_degree, ct0.slots)
 
     def _lift_msgs(self, msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
-        """int64 messages [N] -> canonical residues [LK, N] at the moduli
-        qk (bit-exact encoder._signed_to_rns)."""
+        """int64 messages [..., N] -> canonical residues [..., LK, N] at
+        the moduli qk [LK, 1] (bit-exact encoder._signed_to_rns)."""
         neg = msg < 0
         mag = torch.where(neg, -msg, msg)
-        r = modops.mod_u64(mag[None, :], qk, muh, mulo)
-        return torch.where(neg[None, :] & (r != 0), qk - r, r)
+        r = modops.mod_u64(mag[..., None, :], qk, muh, mulo)
+        return torch.where(neg[..., None, :] & (r != 0), qk - r, r)
+
+    def _mac_msgs(self, msgs: torch.Tensor, ext0: torch.Tensor,
+                  ext1: torch.Tensor, idx: list) -> tuple:
+        """(sum_i lift(msgs[i]) * ext0[i], the same for ext1) over the QP
+        limbs `idx`, for R messages [R, N] and exts [R, LK, N]. The R
+        messages are lifted together, NTT'd in one launch over R x LK
+        limbs and multiplied in one launch per component; the products
+        are summed by a pairwise add_mod tree. Residue sums are exact, so
+        this equals ace_tpu's per-message accumulation."""
+        crt = self.crt
+        qk, muh, mulo = crt.mod_arrays(idx)
+        r, n = msgs.shape
+        lift = self._lift_msgs(msgs, qk, muh, mulo).reshape(r * len(idx), n)
+        pn = ntt.ntt_fwd(lift, crt.tables_for(idx * r)).view(r, len(idx), n)
+        return (_sum_mod(modops.barrett_mul_d(pn, ext0, qk, muh, mulo), qk),
+                _sum_mod(modops.barrett_mul_d(pn, ext1, qk, muh, mulo), qk))
 
     def rot_mac_groups_msgs_jit(self, ct: Ciphertext, rots: list,
                                 msgs: torch.Tensor) -> list:
@@ -368,21 +409,89 @@ class Evaluator:
             d0, d1 = self._rot_ext(cin0, key, ai, digits, level)
             ext0.append(d0)
             ext1.append(d1)
-        qk, muh, mulo = crt.mod_arrays(idx)
-        t_live = crt.tables_for(idx)
+        ext0, ext1 = torch.stack(ext0), torch.stack(ext1)  # [R, LK, N]
         outs = []
         pl_scale = self.params.scaling_factor
         for g in range(msgs.shape[0]):  # the lax.scan over groups
-            acc0 = acc1 = None
-            for i in range(len(rots)):
-                pn = ntt.ntt_fwd(self._lift_msgs(msgs[g, i], qk, muh, mulo),
-                             t_live)
-                t0 = modops.barrett_mul_d(pn, ext0[i], qk, muh, mulo)
-                t1 = modops.barrett_mul_d(pn, ext1[i], qk, muh, mulo)
-                acc0 = t0 if acc0 is None else modops.add_mod(acc0, t0, qk)
-                acc1 = t1 if acc1 is None else modops.add_mod(acc1, t1, qk)
+            acc0, acc1 = self._mac_msgs(msgs[g], ext0, ext1, idx)
             o0 = P.mod_down(RnsPoly(acc0, level, num_p, True), crt)
             o1 = P.mod_down(RnsPoly(acc1, level, num_p, True), crt)
             outs.append(Ciphertext(o0, o1, ct.scaling_factor * pl_scale,
                                    ct.sf_degree + 1, ct.slots))
         return outs
+
+    # -- the bootstrap's BSGS level ---------------------------------------
+
+    def bsgs_iter_jit(self, ct: Ciphertext, baby_rots: list,
+                      giant_rots: list, msgs: torch.Tensor) -> Ciphertext:
+        """One collapsed-FFT level of the bootstrap as baby-step/giant-step
+        rotations (Rotate_iteration, ckks_bootstrap_context.c:1237-1383),
+        with ace_tpu's _mk_bsgs_iter bookkeeping: baby rotations share one
+        digit decompose/mod-up and stay in the QP basis (rotation 0 is the
+        plain embedding _p_scale(., True)); group i's MACs against the
+        messages msgs[i] ([len(giant_rots), len(baby_rots), N] int64)
+        accumulate in QP; group i's c0 joins the extended `first`
+        accumulator by automorphism alone, and only its c1 is mod-downed
+        and key-switched for the giant rotation; one final mod-down per
+        component.
+
+        The baby keys are read one at a time (never stacked). Each
+        group's MACs are one _mac_msgs call."""
+        crt = self.crt
+        level, num_p = ct.level, crt.num_p
+        idx = list(range(level)) + [crt.num_q + j for j in range(num_p)]
+        cin0 = RnsPoly(ct.c0.data, level, 0, True)
+        cin1 = RnsPoly(ct.c1.data, level, 0, True)
+        q_live, _, _ = crt.mod_arrays(range(level))
+
+        ext0, ext1 = [], []
+        digits = c0p = None
+        for r in baby_rots:
+            ai, key = self.keygen.rot_key(r) if r else (1, None)
+            if ai == 1:
+                ext0.append(self._p_scale(cin0, True).data)
+                ext1.append(self._p_scale(cin1, True).data)
+                continue
+            if digits is None:
+                digits = self._switch_key_digits(cin1)
+                c0p = self._p_scale(cin0).data
+            e0, e1 = self._switch_key_ext(key, digits, level)
+            top = modops.add_mod(e0.data[:level], c0p, q_live)
+            order = crt.auto_order(ai)
+            ext0.append(torch.cat([top, e0.data[level:]], dim=0)
+                        .index_select(1, order))
+            ext1.append(e1.data.index_select(1, order))
+        ext0, ext1 = torch.stack(ext0), torch.stack(ext1)  # [g, LK, N]
+
+        first = out0 = out1 = None
+        for i, r in enumerate(giant_rots):
+            acc0, acc1 = (RnsPoly(d, level, num_p, True) for d in
+                          self._mac_msgs(msgs[i], ext0, ext1, idx))
+            gai, gkey = self.keygen.rot_key(r) if r else (1, None)
+            if i == 0:
+                first, out1 = acc0, acc1
+            elif gai != 1:
+                c1q = P.mod_down(acc1, crt)
+                first = P.add(first, P.automorphism(acc0, gai, crt), crt)
+                e0, e1 = self._switch_key_ext(
+                    gkey, self._switch_key_digits(c1q), level)
+                a0 = P.automorphism(e0, gai, crt)
+                out0 = a0 if out0 is None else P.add(out0, a0, crt)
+                out1 = P.add(out1, P.automorphism(e1, gai, crt), crt)
+            else:
+                first = P.add(first, acc0, crt)
+                out1 = P.add(out1, acc1, crt)
+        out0 = first if out0 is None else P.add(out0, first, crt)
+        return Ciphertext(P.mod_down(out0, crt), P.mod_down(out1, crt),
+                          ct.scaling_factor * self.params.scaling_factor,
+                          ct.sf_degree + 1, ct.slots)
+
+
+def _sum_mod(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """x[0] + ... + x[k-1] mod q by a pairwise add_mod tree (ceil(log2 k)
+    launches)."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        s = modops.add_mod(x[:h], x[h:2 * h], q)
+        x = torch.cat([s, x[2 * h:]]) if x.shape[0] % 2 else s
+    return x[0]

@@ -6,7 +6,8 @@ weight, pk = (-(a s)+e, a), and hybrid key-switching keys with one
 (b, a) pair per digit: b = -a*old_key + P*Q~_part*new_key + e over the
 Q ∪ P basis (Generate_switching_key, ckks_key_generator.c:127-197;
 rotation keys use the inverse automorphism of the NTT secret and swap
-old/new for rotate-after-keyswitch, :238-268).
+old/new for rotate-after-keyswitch, :238-268; the conjugation key is the
+rotation key of auto index 2N-1 and shares their LRU).
 
 Randomness: the secret, the public key and every error come from the
 host generator `rng` (BLAKE2b counter-mode CSPRNG by default,
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ace_tpu_torch.ckks.params import CkksParams
-from ace_tpu_torch.ops import modops
+from ace_tpu_torch.ops import modops, ntt
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
 from ace_tpu_torch.utils import number_theory as nt
@@ -207,11 +208,12 @@ class KeyGenerator:
         hi, lo = self._uniform_qp_words((parts, lk, n))
         a = modops.barrett_reduce_128(hi, lo, q[None], mu_hi[None],
                                       mu_lo[None])
-        e_ntt = torch.stack([
-            P.to_ntt(RnsPoly(modops.to_torch(
-                _signed_to_rns(e_h[i], crt.all_primes), self.device),
-                crt.num_q, crt.num_p, False), crt).data
-            for i in range(parts)])
+        # the errors' residues (_signed_to_rns) formed on the device, all
+        # digits' NTTs in one launch
+        e = torch.as_tensor(e_h, device=self.device)[:, None, :]
+        e_rns = torch.where(e < 0, q[None] + e, e).reshape(parts * lk, n)
+        e_ntt = ntt.ntt_fwd(e_rns, crt.tables_for(list(range(lk)) * parts)
+                            ).view(parts, lk, n)
         t = modops.barrett_mul_d(a, old_key.data[None], q[None],
                                  mu_hi[None], mu_lo[None])
         b = modops.add_mod(modops.sub_mod(e_ntt, t, q[None]),
@@ -243,6 +245,20 @@ class KeyGenerator:
             with TIMING.tm("RTM_ROT_KEY_REGEN"):
                 gen_idx = nt.mod_inv(auto_idx, 2 * n)
                 rotated = P.automorphism(self.sk.ntt_sk, gen_idx, self.crt)
+                key = self._gen_switching_key(self.sk.ntt_sk, rotated)
+        self._lru_insert(auto_idx, key)
+        return auto_idx, key
+
+    def conj_key(self) -> tuple[int, SwitchKey]:
+        """Conjugation key (auto index 2N-1), held in the same LRU as the
+        rotation keys (touched on use, bounded by max_rot_keys)."""
+        auto_idx = 2 * self.params.degree - 1
+        key = self._rot_keys.pop(auto_idx, None)
+        if key is None:
+            from ace_tpu_torch.runtime.timing import TIMING
+            with TIMING.tm("RTM_ROT_KEY_REGEN"):
+                # 2N-1 is its own inverse mod 2N, so gen_idx == auto_idx
+                rotated = P.automorphism(self.sk.ntt_sk, auto_idx, self.crt)
                 key = self._gen_switching_key(self.sk.ntt_sk, rotated)
         self._lru_insert(auto_idx, key)
         return auto_idx, key

@@ -52,7 +52,8 @@ def keygen(params: CkksParams, sk_coeffs, sk_ntt, pk_b, pk_a,
 
     sk_coeffs: signed ternary [N]; sk_ntt: [num_q + num_p, N] NTT form;
     pk_b, pk_a: [num_q, N]; relin: ([b digits], [a digits]);
-    rot_keys: {rotation: (auto_idx, [b digits], [a digits])}.
+    rot_keys: {rotation: (auto_idx, [b digits], [a digits])}, held by
+    auto_idx; an entry with auto_idx 2N-1 is the conjugation key.
     rng: host generator for encryption noise (and for any rotation key
     not given, which is then generated)."""
     crt = params.crt

@@ -195,9 +195,10 @@ class CompiledModel:
     num_classes: int
 
 
-# rotation-key LRU budget of compile_model: the keys of a full ResNet
-# (~227 rotations at ~70 MB each at N=2^15) leave room on an 80 GB card
-# for the caches, the bundle workspace and the live ciphertexts
+# rotation-key LRU budget of compile_model: the keys of a full ResNet-20
+# with bootstrapping (~320 rotations and the conjugation key at ~70 MB
+# each at N=2^15, about 23 GB) leave room on an 80 GB card for the
+# caches, the bundle workspace and the live ciphertexts
 ROT_KEY_BUDGET_BYTES = 40 << 30
 
 
@@ -211,10 +212,6 @@ def compile_model(g: NNGraph, cfg: SchemeConfig | None = None,
     from ace_tpu_torch.runtime.context import FheContext
 
     cfg = cfg or SchemeConfig()
-    if cfg.use_bootstrap:
-        raise NotImplementedError(
-            "bootstrapping is not ported yet: use SchemeConfig("
-            "use_bootstrap=False) on graphs that fit the modulus chain")
     scheme = select_params(g, cfg)
     if ctx is None:
         ctx = FheContext(scheme_info=scheme, max_rot_keys=max_rot_keys,
@@ -222,7 +219,8 @@ def compile_model(g: NNGraph, cfg: SchemeConfig | None = None,
                          else ROT_KEY_BUDGET_BYTES, device=device)
     if trace:
         trace(ctx.hbm_plan())
-    be = pk.FheBackend(ctx.evaluator, ctx.encoder)
+    be = pk.FheBackend(ctx.evaluator, ctx.encoder,
+                       bootstrap_fn=ctx.bootstrap)
     runner = GraphRunner(
         g, be, relu_ranges=cfg.relu_ranges,
         relu_range_default=cfg.relu_value_range,

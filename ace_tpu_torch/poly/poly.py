@@ -12,6 +12,8 @@ Exact-semantics sources:
   decompose/mod-up:   polynomial.c:848-926 (digit extract + raise to
                       complement basis, NTT splice)
   mod-down:           polynomial.c:928-966 (P->Q conv, (x - conv) * P^-1)
+  mod-raise:          ckks_bootstrap_context.c:1527-1550 (centered lift
+                      of the last tower to the whole chain)
   rescale:            polynomial.c:1097-1196 (NTT path: switch-modulus of
                       the dropped limb + per-limb correction)
 
@@ -270,6 +272,18 @@ def switch_modulus_data(data, old_q: int, new_qs: list[int],
     diff, new_q = _switch_modulus_cols(ctx, old_q, new_qs)
     sm = data + torch.where(data > (old_q >> 1), diff, 0)
     return torch.where(sm >= new_q, sm % new_q, sm)
+
+
+def mod_raise(a: RnsPoly, ctx: CrtContext, target_level: int) -> RnsPoly:
+    """Raise a level-1 coefficient-form poly to target_level limbs by
+    centered lifting mod each q_i (Transform_values_from_level0,
+    ckks_bootstrap_context.c:1527-1550)."""
+    assert not a.is_ntt and a.num_q == 1 and a.num_p == 0
+    q0 = ctx.q_primes[0]
+    rest = switch_modulus_data(a.data[:1], q0,
+                               ctx.q_primes[1:target_level], ctx)
+    return RnsPoly(torch.cat([a.data[:1], rest], dim=0), target_level, 0,
+                   False)
 
 
 # ---------------------------------------------------------------------------

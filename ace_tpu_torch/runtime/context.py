@@ -4,8 +4,8 @@ The FheContext of `ace_tpu.runtime.context` (the reference's rtlib
 context.c Prepare_context:29-86 plus the io_api client/server split):
 the *client* holds the secret key and does encode/encrypt/decrypt on the
 host; the *server* holds only evaluation keys and runs the encrypted
-graph on the device. Single device: the JAX package's mesh options and
-its SPMD evaluator have no counterpart in this slice.
+graph on the device, bootstrapping included. Single device: the JAX
+package's mesh options and its SPMD evaluator have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ class FheContext:
             self.keygen = KeyGenerator(params, Blake2Csprng(seed),
                                        max_rot_keys=max_rot_keys)
             self.evaluator = Evaluator(params, self.keygen, self.encoder)
+        self._bts = {}  # slot count -> BootstrapContext
         self._io_inputs: dict[str, object] = {}
         self._io_outputs: dict[str, object] = {}
 
@@ -82,6 +83,23 @@ class FheContext:
                 % (n_keys, key_b / 2**20, keys / 2**30,
                    msg_budget / 2**30, pt_budget / 2**30,
                    work / 2**30, bundle, L, total / 2**30))
+
+    # -- bootstrap precompute (context.c:162-185) -----------------------
+
+    def bootstrap_precom(self, slots: int = 0, level_budget=(3, 3)):
+        from ace_tpu_torch.ckks.bootstrap import BootstrapContext
+        slots = slots or self.params.degree // 2
+        if slots not in self._bts:
+            with TIMING.tm("RTM_BS_SETUP"):
+                self._bts[slots] = BootstrapContext(
+                    self.evaluator, slots, level_budget)
+        return self._bts[slots]
+
+    def bootstrap(self, ct, raise_level: int = 0):
+        """Bootstrap with lazy per-slot-count precompute
+        (cipher_eval.c:366-380)."""
+        with TIMING.tm("RTM_BOOTSTRAP"):
+            return self.bootstrap_precom(ct.slots).bootstrap(ct, raise_level)
 
     # -- client side (io_api): encode/encrypt/decrypt --------------------
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases; any failure exits non-zero and prints no result line.
+Six phases; any failure exits non-zero and prints no result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -21,6 +21,14 @@ Four phases; any failure exits non-zero and prints no result line.
      encrypted at N = 2^15 with a 34-prime chain, through compile_model
      and infer_encrypted, against infer_plain; every kernel's launch
      counter must grow during the inference.
+  5. one bootstrap at the same ring and chain: uniform(-0.7, 0.7) in N/2
+     slots at level 2, through FheContext.bootstrap cold, warm and warm
+     under the profiler; levels regained, decoded within 2e-2.
+  6. all of ResNet-20 (build_resnet_cifar(3), a bootstrap before each of
+     its 19 ReLUs) at the parameters select_params picks, through
+     compile_model and infer_encrypted, cold then warm: finite logits,
+     argmax equal to infer_plain's, max_err <= 0.1 * max|plain|. The
+     kernel rows' `launches` count this warm inference.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -464,14 +472,14 @@ def phase_slice() -> dict:
             "max_err": errs[0], "max_plain": scale}
 
 
-def profile_inference(run, unprofiled_s: float):
-    """One more warm inference under torch.profiler: kernel time by name
-    and the device's busy share. The profiler slows the host, so the
-    busy share is given both over the profiled wall time (the idle share
-    of that run) and over `unprofiled_s`, the wall time of an unprofiled
-    warm inference (a rough figure for a real one). The inference always
-    runs, any failure of it fails the phase, and its output is returned
-    for the phase's check; only a profiler that cannot start or reports
+def profile_inference(run, unprofiled_s: float, tag: str = "[phase 4]"):
+    """One more warm run under torch.profiler: kernel time by name and
+    the device's busy share. The profiler slows the host, so the busy
+    share is given both over the profiled wall time (the idle share of
+    that run) and over `unprofiled_s`, the wall time of an unprofiled
+    warm run (a rough figure for a real one). The run always happens,
+    any failure of it fails the phase, and its output is returned for
+    the phase's check; only a profiler that cannot start or reports
     nothing is logged as not measured."""
     import contextlib
     import torch
@@ -482,7 +490,7 @@ def profile_inference(run, unprofiled_s: float):
         prof = stack.enter_context(profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     except Exception as exc:  # noqa: BLE001 — the profiler alone
-        log(f"[phase 4] profiler did not start, not measured: {exc!r}")
+        log(f"{tag} profiler did not start, not measured: {exc!r}")
     with stack:
         t0 = time.perf_counter()
         out = run()
@@ -500,20 +508,185 @@ def profile_inference(run, unprofiled_s: float):
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     except Exception as exc:  # noqa: BLE001 — the profiler's report alone
-        log(f"[phase 4] profile unreadable, not measured: {exc!r}")
+        log(f"{tag} profile unreadable, not measured: {exc!r}")
         return out
     if not events:
-        log("[phase 4] profile: no device time recorded (not measured)")
+        log(f"{tag} profile: no device time recorded (not measured)")
         return out
     busy = sum(dev_us(e) for e in events) / 1e6
-    log(f"[phase 4] profiled warm inference {wall:.2f} s wall, kernels busy "
+    log(f"{tag} profiled warm run {wall:.2f} s wall, kernels busy "
         f"{busy:.2f} s: idle {100 * (1 - busy / wall):.0f}% of the profiled "
         f"run; busy {100 * busy / unprofiled_s:.0f}% of the unprofiled "
-        f"warm inference's {unprofiled_s:.2f} s (rough)")
+        f"warm run's {unprofiled_s:.2f} s (rough)")
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
-        log(f"[phase 4]   {dev_us(e) / 1e3:10.2f} ms {e.count:7d}x  "
+        log(f"{tag}   {dev_us(e) / 1e3:10.2f} ms {e.count:7d}x  "
             f"{e.key[:90]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: one bootstrap at full parameters
+# ---------------------------------------------------------------------------
+
+def phase_bootstrap() -> dict:
+    """tests/test_bootstrap.py at ResNet-20's ring: uniform(-0.7, 0.7) in
+    N/2 slots encrypted at level 2, bootstrapped through
+    FheContext.bootstrap cold (the bootstrap tables and its 91 rotation
+    keys and the conjugation key made on demand), warm, and warm under
+    torch.profiler. Each output must regain levels and decode within
+    2e-2 (that test's bound); every kernel's counter must grow."""
+    import torch
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.runtime.timing import TIMING
+
+    TIMING.enabled = True
+    TIMING.reset()
+    params = CkksParams(degree=DEGREE, num_q=NUM_Q, first_mod_size=60,
+                        scaling_mod_size=56, hamming_weight=192,
+                        num_q_parts=Q_PARTS, device="cuda")
+    ctx = FheContext(params, seed=SEED)
+    msg = np.random.default_rng(SEED + 5).uniform(-0.7, 0.7, DEGREE // 2)
+    ct = ctx.evaluator.encrypt(ctx.encoder.encode(
+        msg.astype(np.complex128), level=2))
+    assert ct.level == 2
+
+    def run():
+        out = ctx.bootstrap(ct)
+        torch.cuda.synchronize()
+        return out
+
+    reset_counters()
+    t0 = time.perf_counter()
+    outs = [run()]
+    t_cold = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"[phase 5] cold bootstrap {t_cold:.2f} s: tables "
+        f"{TIMING.seconds('RTM_BS_SETUP'):.2f} s, "
+        f"{TIMING.count('RTM_ROT_KEY_REGEN')} keys "
+        f"{TIMING.seconds('RTM_ROT_KEY_REGEN'):.2f} s; launches {launches}")
+    TIMING.reset()
+    t0 = time.perf_counter()
+    outs.append(run())
+    t_warm = time.perf_counter() - t0
+    log(f"[phase 5] warm bootstrap {t_warm:.2f} s")
+    log(TIMING.report())
+    outs.append(profile_inference(run, t_warm, "[phase 5]"))
+    errs = []
+    for out in outs:
+        ctx.set_output_data("bts", out)
+        errs.append(float(np.max(np.abs(ctx.handle_output("bts") - msg))))
+    log(f"[phase 5] level 2 -> {outs[0].level}, sf_degree "
+        f"{outs[0].sf_degree}; max decode error {max(errs):.3e} over "
+        f"{len(outs)} runs (limit 2e-2)")
+    if not all(o.level > ct.level + 2 for o in outs):
+        raise AssertionError(f"no levels gained: {[o.level for o in outs]}")
+    if not max(errs) < 2e-2:
+        raise AssertionError(f"bootstrap decodes with error {max(errs)}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in the bootstrap: "
+                             f"{idle}")
+    return {"cold_s": t_cold, "warm_s": t_warm, "max_err": max(errs),
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: all of ResNet-20, bootstrapping before every ReLU
+# ---------------------------------------------------------------------------
+
+RESNET20_BOOTSTRAPS = 19  # one before each of its 19 ReLUs
+
+
+def phase_resnet20() -> dict:
+    """build_resnet_cifar(3), every op, at the parameters select_params
+    picks with use_bootstrap=True (no forced mul_level; the input at
+    scheme.input_level), through compile_model and infer_encrypted on
+    phase 4's image and calibration: one cold inference (keys made on
+    demand), then one warm. Gate: finite logits of shape (10,), argmax
+    equal to infer_plain's, max_err <= 0.1 * max|plain|, 19 bootstraps
+    a run, every kernel's counter growing in the warm run."""
+    import torch
+    from ace_tpu_torch.compiler.relu_ranges import ranges_for
+    from ace_tpu_torch.compiler.scheme_info import SchemeConfig
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.runtime.timing import TIMING
+
+    TIMING.enabled = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = M.build_resnet_cifar(3)
+    img = np.random.default_rng(0).uniform(-1.5, 1.5, (1, 3, 32, 32))[0]
+    vr_default, vr = ranges_for("resnet20_cifar10")
+    vr_default, vr = M.calibrate_relu_ranges(g, [img], vr_default, vr)
+    cfg = SchemeConfig(security_level=0, hamming_weight=192,
+                       first_mod_size=60, scaling_mod_size=56,
+                       relu_mul_depth=9, relu_value_range=vr_default,
+                       relu_ranges=vr, use_bootstrap=True)
+    t0 = time.perf_counter()
+    model = M.compile_model(g, cfg, trace=log)
+    torch.cuda.synchronize()
+    t_ctx = time.perf_counter() - t0
+    si, crt = model.scheme, model.ctx.params.crt
+    log(f"[phase 6] {len(g.ops)} ops; select_params: N={si.poly_degree} "
+        f"mul_level={si.mul_level} input_level={si.input_level} "
+        f"bootstrap_depth={si.bootstrap_depth}; {crt.num_q} q + "
+        f"{crt.num_p} P primes, {model.ctx.params.num_q_parts} digits; "
+        f"context {t_ctx:.1f} s")
+
+    def infer(trace):
+        model.runner.trace = trace
+        TIMING.reset()
+        t0 = time.perf_counter()
+        out = M.infer_encrypted(model, img)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out_cold, t_cold = infer(log)
+    n_bts = [TIMING.count("RTM_BOOTSTRAP")]
+    t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
+    n_keys = TIMING.count("RTM_ROT_KEY_REGEN")
+    log(f"[phase 6] cold inference {t_cold:.1f} s, of which {n_keys} "
+        f"rotation keys {t_keys:.1f} s and bootstrap tables "
+        f"{TIMING.seconds('RTM_BS_SETUP'):.1f} s")
+    log(TIMING.report())
+    reset_counters()
+    out_warm, t_warm = infer(None)
+    launches = read_counters()
+    limbs = read_limbs()
+    n_bts.append(TIMING.count("RTM_BOOTSTRAP"))
+    log(f"[phase 6] warm inference {t_warm:.1f} s; launches {launches}; "
+        f"NTT limbs {limbs}")
+    log(TIMING.report())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = M.infer_plain(g, img, n_slots=DEGREE // 2)[:10]
+    scale = float(np.max(np.abs(plain)))
+    errs = [float(np.max(np.abs(o - plain))) for o in (out_cold, out_warm)]
+    agree = [int(np.argmax(o)) == int(np.argmax(plain))
+             for o in (out_cold, out_warm)]
+    log(f"[phase 6] logits (warm) {np.array2string(out_warm, precision=4)}")
+    log(f"[phase 6] plain         {np.array2string(plain, precision=4)}")
+    log(f"[phase 6] max_err {errs[0]:.4e} cold, {errs[1]:.4e} warm; "
+        f"max|plain| {scale:.4f}, limit 0.1 * max|plain| = "
+        f"{0.1 * scale:.4e}; argmax agrees {agree}; bootstraps {n_bts}; "
+        f"{len(model.ctx.keygen._rot_keys)} rotation keys held; peak "
+        f"device memory {peak:.2f} GiB")
+    if not all(np.all(np.isfinite(o)) and o.shape == (10,)
+               for o in (out_cold, out_warm)):
+        raise AssertionError("logits are not finite or have the wrong shape")
+    if not all(agree):
+        raise AssertionError(f"argmax disagrees with infer_plain: {agree}")
+    if not max(errs) <= 0.1 * scale:
+        raise AssertionError(f"max_err {max(errs)} > 0.1 * {scale}")
+    if n_bts != [RESNET20_BOOTSTRAPS] * 2:
+        raise AssertionError(f"bootstraps per inference {n_bts}, expected "
+                             f"{RESNET20_BOOTSTRAPS}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in ResNet-20: {idle}")
+    return {"launches": launches, "cold_s": t_cold, "warm_s": t_warm,
+            "rot_keygen_s": t_keys, "keys": n_keys, "max_err": max(errs),
+            "max_plain": scale, "peak_gib": peak}
 
 
 def main() -> int:
@@ -536,14 +709,23 @@ def main() -> int:
         rows = phase_kernels(crt)
         phase_ops_exact()
         res = phase_slice()
-        for r in rows:
-            r["launches"] = res["launches"][r["name"].split()[0]]
-        log(f"[summary] slice: context {res['context_s']:.2f} s, inference "
-            f"{res['inference_s']:.2f} s (rotation keygen "
+        log(f"[summary] ops[:6]: context {res['context_s']:.2f} s, "
+            f"inference {res['inference_s']:.2f} s (rotation keygen "
             f"{res['rot_keygen_s']:.2f} s), warm inference "
             f"{res['warm_inference_s']:.2f} s, max_err "
-            f"{res['max_err']:.3e} of max|plain| {res['max_plain']:.3f}; "
-            f"total {time.perf_counter() - t_start:.1f} s on {dev['card']}")
+            f"{res['max_err']:.3e} of max|plain| {res['max_plain']:.3f}")
+        bts = phase_bootstrap()
+        log(f"[summary] bootstrap: cold {bts['cold_s']:.2f} s, warm "
+            f"{bts['warm_s']:.2f} s, max_err {bts['max_err']:.3e}")
+        full = phase_resnet20()
+        for r in rows:
+            r["launches"] = full["launches"][r["name"].split()[0]]
+        log(f"[summary] ResNet-20: cold {full['cold_s']:.1f} s ("
+            f"{full['keys']} rotation keys {full['rot_keygen_s']:.1f} s), "
+            f"warm {full['warm_s']:.1f} s, max_err {full['max_err']:.3e} "
+            f"of max|plain| {full['max_plain']:.3f}, peak "
+            f"{full['peak_gib']:.2f} GiB; total "
+            f"{time.perf_counter() - t_start:.1f} s on {dev['card']}")
         print(dev["card"])
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """PyTorch port: it stands alone. No file of ace_tpu_torch/, nor
-chip_smoke.py, imports jax or ace_tpu; importing the port leaves jax
-unloaded; its entry points refuse to fall back to the CPU silently."""
+chip_smoke.py or run_resnet_torch.py, imports jax or ace_tpu; importing
+the port leaves jax unloaded; its entry points refuse to fall back to
+the CPU silently."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                              "run_resnet_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ace_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

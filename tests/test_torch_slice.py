@@ -1,13 +1,14 @@
-"""PyTorch port: the slice end to end — a narrow graph with the op
+"""PyTorch port: the slices end to end — a narrow graph with the op
 pattern of ResNet-20's first residual block (Conv -> ReLU -> Conv -> ReLU
--> Conv -> Add), encrypted, through both packages' compile_model and
-graph runner on the same keys and the same input ciphertext; plus the
-parameters and weights that chip_smoke.py takes from ResNet-20."""
+-> Conv -> Add), and the tiny CNN of tests/test_e2e_tiny.py with a
+bootstrap before its ReLU, encrypted through both packages'
+compile_model and graph runner on the same keys and the same input
+ciphertext; plus the parameters and weights that chip_smoke.py takes
+from ResNet-20, with and without bootstrapping."""
 
 import dataclasses
 
 import numpy as np
-import pytest
 
 from ace_tpu.compiler.onnx_front import NNOp, NNGraph
 from ace_tpu.compiler.relu_ranges import ranges_for
@@ -116,7 +117,66 @@ def test_resnet20_weights_equal():
                                       err_msg=k)
 
 
-def test_compile_model_refuses_bootstrap():
-    with pytest.raises(NotImplementedError):
-        TM.compile_model(_port_graph(_prefix_graph()),
-                         TS.SchemeConfig(security_level=0), device="cpu")
+def test_compile_model_wires_bootstrap():
+    """use_bootstrap=True: the graph runner's backend bootstraps through
+    the context's FheContext.bootstrap before each ReLU."""
+    model = TM.compile_model(_port_graph(_prefix_graph()),
+                             TS.SchemeConfig(security_level=0,
+                                             hamming_weight=16),
+                             device="cpu")
+    assert model.runner.bootstrap_before_relu
+    assert model.runner.be.bootstrap_fn == model.ctx.bootstrap
+
+
+def test_resnet20_bootstrap_params_equal():
+    """All of ResNet-20 with bootstrapping (chip_smoke.py phase 6): the
+    port's select_params equals ace_tpu's, the port's level_sim
+    resolving bootstrap_depth through its own ckks.bootstrap."""
+    vr_default, vr = ranges_for("resnet20_cifar10")
+    kw = dict(security_level=0, hamming_weight=192, first_mod_size=60,
+              scaling_mod_size=56, relu_mul_depth=9,
+              relu_value_range=vr_default, relu_ranges=vr,
+              use_bootstrap=True)
+    want = select_params(M.build_resnet_cifar(3), SchemeConfig(**kw))
+    got = TS.select_params(TM.build_resnet_cifar(3), TS.SchemeConfig(**kw))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.poly_degree, got.mul_level, got.input_level,
+            got.bootstrap_depth) == (32768, 33, want.input_level, 15)
+
+
+def _tiny_cnn_cfg(mod):
+    """tests/test_e2e_tiny.py's encrypted configuration: degree 64, a
+    bootstrap before the ReLU."""
+    return mod.SchemeConfig(security_level=0, hamming_weight=32,
+                            relu_value_range=2.0, relu_mul_depth=13)
+
+
+def test_tiny_cnn_bootstrap_bit_exact_and_decodes():
+    """tests/test_e2e_tiny.py's CNN (Conv -> ReLU -> GlobalAveragePool on
+    4x4, degree 64) with a bootstrap before its ReLU, through both
+    packages on the same keys and the same input ciphertext: equal
+    residues. Then the port alone, end to end through infer_encrypted:
+    decoded within test_e2e_tiny.py's 5e-2 of infer_plain."""
+    from tests.test_e2e_tiny import tiny_cnn
+    g = tiny_cnn()
+    model = M.compile_model(g, _tiny_cnn_cfg(S), num_classes=2)
+    assert model.scheme.poly_degree == 64
+    x = RNG.uniform(-1, 1, (1, 4, 4))
+    ct = model.ctx.prepare_input(x, "input", level=model.scheme.input_level)
+    want = model.runner.run(ct)
+
+    tg = _port_graph(g)
+    tctx = TFheContext(scheme_info=model.scheme, device="cpu")
+    tkg = port_keygen(tctx.params, model.ctx.keygen,
+                      rng=np.random.default_rng(3))
+    tctx.keygen = tctx.evaluator.keygen = tkg
+    tmodel = TM.compile_model(tg, _tiny_cnn_cfg(TS), ctx=tctx, num_classes=2)
+    assert dataclasses.asdict(tmodel.scheme) == \
+        dataclasses.asdict(model.scheme)
+    got = tmodel.runner.run(port_ct(ct))
+    assert_ct_equal(got, want)
+
+    plain = TM.infer_plain(tg, x, n_slots=32)[:2]
+    dec = TM.infer_encrypted(tmodel, x)
+    assert dec.shape == (2,)
+    assert np.max(np.abs(dec - plain)) < 5e-2, (dec, plain)
