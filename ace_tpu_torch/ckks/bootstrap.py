@@ -5,8 +5,7 @@ The bootstrap of `ace_tpu.ckks.bootstrap`, replicating the reference
 pipeline (fhe-cmplr/rtlib/ant/src/util/ckks_bootstrap_context.c
 Eval_bootstrap :1584-1862) with the FFT-factored homomorphic
 encoding/decoding (Coeff_enc/dec_one_level :419-513, Select_layers :513,
-Coeff_collapse :612-778) at configurable level budgets (default {3,3}
-per rtlib/context.c:162-167).
+Coeff_collapse :612-778) at the level budget LEVEL_BUDGET.
 
 The host tables (sine coefficients, FFT parameters, collapsed diagonal
 matrices) are numpy float64 computed exactly as in ace_tpu, line for
@@ -38,6 +37,9 @@ from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
 from ace_tpu_torch.runtime.timing import TIMING
 
+# (CoeffsToSlots, SlotsToCoeffs) levels: Bootstrap_precom's fixed budget
+# (rtlib/context.c:162-167)
+LEVEL_BUDGET = (3, 3)
 # ckks_bootstrap_context.h:70-101 (G_coefficients_uniform_hw_192)
 K_UNIFORM_HW_192 = 32
 R_UNIFORM_HW_192 = 3
@@ -131,7 +133,7 @@ def select_layers(log_slots: int, budget: int):
     return layers, rows, rem
 
 
-def fft_params(slots: int, level_budget: int, dim1: int = 0):
+def fft_params(slots: int, level_budget: int):
     """Get_colls_fft_params (:551-610). Returns a dict of the
     CKKS_BOOT_PARAMS fields."""
     log_slots = int(math.log2(slots))
@@ -139,10 +141,7 @@ def fft_params(slots: int, level_budget: int, dim1: int = 0):
     flag_rem = 1 if rem_coll else 0
     num_rot = (1 << (layers_coll + 1)) - 1
     num_rot_rem = (1 << (rem_coll + 1)) - 1
-    if dim1 == 0 or dim1 > num_rot:
-        g = 1 << (layers_coll // 2 + (2 if num_rot > 7 else 1))
-    else:
-        g = dim1
+    g = 1 << (layers_coll // 2 + (2 if num_rot > 7 else 1))
     b = (num_rot + 1) // g
     b_rem = g_rem = 0
     if flag_rem:
@@ -258,8 +257,7 @@ def coeff_collapse(ksipows, rot_group, level_budget: int, flag: bool,
     return coeff
 
 
-def bootstrap_rotation_indices(degree: int, slots: int = 0,
-                               level_budget=(3, 3)) -> list:
+def bootstrap_rotation_indices(degree: int, slots: int = 0) -> list:
     """Rotation indices a bootstrap at this slot count will use
     (Bootstrap_keygen's inventory, ckks_bootstrap_context.c:1194) —
     host-only math, for key planning / the compile manifest."""
@@ -268,8 +266,8 @@ def bootstrap_rotation_indices(degree: int, slots: int = 0,
     log_slots = int(math.log2(slots))
     full_pack = slots == n // 2
     out = set()
-    for encoding, budget in ((True, min(level_budget[0], log_slots) or 1),
-                             (False, min(level_budget[1], log_slots) or 1)):
+    for encoding, budget in ((True, min(LEVEL_BUDGET[0], log_slots) or 1),
+                             (False, min(LEVEL_BUDGET[1], log_slots) or 1)):
         p = fft_params(slots, budget)
         slots_value = ((2 * slots if not full_pack else slots)
                        if encoding else (n // 2))
@@ -311,7 +309,7 @@ def bootstrap_rotation_indices(degree: int, slots: int = 0,
 class BootstrapContext:
     """Per-slot-count bootstrap precompute bound to an Evaluator."""
 
-    def __init__(self, ev, slots: int = 0, level_budget=(3, 3)):
+    def __init__(self, ev, slots: int = 0):
         self.ev = ev
         params = ev.params
         n = params.degree
@@ -320,8 +318,8 @@ class BootstrapContext:
         slots = self.slots
         self.is_sparse = (4 * slots != m)
         log_slots = int(math.log2(slots))
-        budget_enc = min(level_budget[0], log_slots) if log_slots else 1
-        budget_dec = min(level_budget[1], log_slots) if log_slots else 1
+        budget_enc = min(LEVEL_BUDGET[0], log_slots) if log_slots else 1
+        budget_dec = min(LEVEL_BUDGET[1], log_slots) if log_slots else 1
         self.enc_params = fft_params(slots, budget_enc)
         self.dec_params = fft_params(slots, budget_dec)
 
@@ -507,7 +505,7 @@ class BootstrapContext:
 
     # -- main flow -------------------------------------------------------
 
-    def bootstrap(self, ct: Ciphertext, raise_level: int = 0) -> Ciphertext:
+    def bootstrap(self, ct: Ciphertext) -> Ciphertext:
         """Eval_bootstrap (:1584-1862), fully-packed and sparse paths."""
         ev = self.ev
         crt = ev.params.crt
@@ -522,9 +520,8 @@ class BootstrapContext:
         if c0.is_ntt:
             c0 = P.from_ntt(c0, crt)
             c1 = P.from_ntt(c1, crt)
-        target = raise_level or crt.num_q
-        c0 = P.to_ntt(P.mod_raise(c0, crt, target), crt)
-        c1 = P.to_ntt(P.mod_raise(c1, crt, target), crt)
+        c0 = P.to_ntt(P.mod_raise(c0, crt, crt.num_q), crt)
+        c1 = P.to_ntt(P.mod_raise(c1, crt, crt.num_q), crt)
         raised = Ciphertext(c0, c1, ct.scaling_factor, 1, ct.slots)
 
         if self.is_sparse:

@@ -300,18 +300,35 @@ class Evaluator:
                           poly.num_q, crt.num_p, poly.is_ntt)
         return out
 
-    def _rot_ext(self, c0: RnsPoly, key: SwitchKey, auto_idx: int,
-                 digits: list, level: int) -> tuple:
-        """Key switch into QP, add P*c0, then automorphism: the ext
-        rotation of every bundle (data tensors)."""
+    def _ext_rotations(self, ct: Ciphertext, rots: list) -> tuple:
+        """The QP-basis rotations of ct for each r in rots, as two lists
+        (c0, c1) of data tensors [LK, N]: one digit decompose/mod-up and
+        one P*c0 shared by all rotations; each key-switches c1 into QP,
+        adds P*c0, then applies its automorphism. Rotation 0 is the plain
+        embedding _p_scale(., True). The ext rotation of every bundle."""
         crt = self.crt
-        e0, e1 = self._switch_key_ext(key, digits, level)
-        q, _, _ = crt.mod_arrays(range(level))
-        top = modops.add_mod(e0.data[:level], self._p_scale(c0).data, q)
-        e0 = RnsPoly(torch.cat([top, e0.data[level:]], dim=0), level,
-                     crt.num_p, True)
-        return (P.automorphism(e0, auto_idx, crt).data,
-                P.automorphism(e1, auto_idx, crt).data)
+        level = ct.level
+        cin0 = RnsPoly(ct.c0.data, level, 0, True)
+        cin1 = RnsPoly(ct.c1.data, level, 0, True)
+        q_live, _, _ = crt.mod_arrays(range(level))
+        ext0, ext1 = [], []
+        digits = c0p = None
+        for r in rots:
+            if r == 0:
+                ext0.append(self._p_scale(cin0, True).data)
+                ext1.append(self._p_scale(cin1, True).data)
+                continue
+            if digits is None:
+                digits = self._switch_key_digits(cin1)
+                c0p = self._p_scale(cin0).data
+            ai, key = self.keygen.rot_key(r)
+            e0, e1 = self._switch_key_ext(key, digits, level)
+            top = modops.add_mod(e0.data[:level], c0p, q_live)
+            order = crt.auto_order(ai)
+            ext0.append(torch.cat([top, e0.data[level:]], dim=0)
+                        .index_select(1, order))
+            ext1.append(e1.data.index_select(1, order))
+        return ext0, ext1
 
     # -- the two bundles of the conv path ---------------------------------
 
@@ -330,17 +347,9 @@ class Evaluator:
         acc0 = acc1 = None
         for ct, r in items:
             assert ct.level == level, "rot_sum inputs must share a level"
-            c0 = RnsPoly(ct.c0.data, level, 0, True)
-            c1 = RnsPoly(ct.c1.data, level, 0, True)
-            if r == 0:
-                e0 = self._p_scale(c0, True)
-                e1 = self._p_scale(c1, True)
-            else:
-                ai, key = self.keygen.rot_key(r)
-                d0, d1 = self._rot_ext(c0, key, ai,
-                                       self._switch_key_digits(c1), level)
-                e0 = RnsPoly(d0, level, crt.num_p, True)
-                e1 = RnsPoly(d1, level, crt.num_p, True)
+            (d0,), (d1,) = self._ext_rotations(ct, [r])
+            e0 = RnsPoly(d0, level, crt.num_p, True)
+            e1 = RnsPoly(d1, level, crt.num_p, True)
             acc0 = e0 if acc0 is None else P.add(acc0, e0, crt)
             acc1 = e1 if acc1 is None else P.add(acc1, e1, crt)
         ct0 = items[0][0]
@@ -394,22 +403,8 @@ class Evaluator:
         crt = self.crt
         level, num_p = ct.level, crt.num_p
         idx = list(range(level)) + [crt.num_q + j for j in range(num_p)]
-        cin0 = RnsPoly(ct.c0.data, level, 0, True)
-        cin1 = RnsPoly(ct.c1.data, level, 0, True)
-        digits = None
-        ext0, ext1 = [], []
-        for r in rots:
-            if r == 0:
-                ext0.append(self._p_scale(cin0, True).data)
-                ext1.append(self._p_scale(cin1, True).data)
-                continue
-            if digits is None:
-                digits = self._switch_key_digits(cin1)
-            ai, key = self.keygen.rot_key(r)
-            d0, d1 = self._rot_ext(cin0, key, ai, digits, level)
-            ext0.append(d0)
-            ext1.append(d1)
-        ext0, ext1 = torch.stack(ext0), torch.stack(ext1)  # [R, LK, N]
+        ext0, ext1 = (torch.stack(e) for e in  # [R, LK, N]
+                      self._ext_rotations(ct, rots))
         outs = []
         pl_scale = self.params.scaling_factor
         for g in range(msgs.shape[0]):  # the lax.scan over groups
@@ -440,28 +435,8 @@ class Evaluator:
         crt = self.crt
         level, num_p = ct.level, crt.num_p
         idx = list(range(level)) + [crt.num_q + j for j in range(num_p)]
-        cin0 = RnsPoly(ct.c0.data, level, 0, True)
-        cin1 = RnsPoly(ct.c1.data, level, 0, True)
-        q_live, _, _ = crt.mod_arrays(range(level))
-
-        ext0, ext1 = [], []
-        digits = c0p = None
-        for r in baby_rots:
-            ai, key = self.keygen.rot_key(r) if r else (1, None)
-            if ai == 1:
-                ext0.append(self._p_scale(cin0, True).data)
-                ext1.append(self._p_scale(cin1, True).data)
-                continue
-            if digits is None:
-                digits = self._switch_key_digits(cin1)
-                c0p = self._p_scale(cin0).data
-            e0, e1 = self._switch_key_ext(key, digits, level)
-            top = modops.add_mod(e0.data[:level], c0p, q_live)
-            order = crt.auto_order(ai)
-            ext0.append(torch.cat([top, e0.data[level:]], dim=0)
-                        .index_select(1, order))
-            ext1.append(e1.data.index_select(1, order))
-        ext0, ext1 = torch.stack(ext0), torch.stack(ext1)  # [g, LK, N]
+        ext0, ext1 = (torch.stack(e) for e in  # [g, LK, N]
+                      self._ext_rotations(ct, baby_rots))
 
         first = out0 = out1 = None
         for i, r in enumerate(giant_rots):

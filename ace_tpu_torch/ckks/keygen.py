@@ -237,28 +237,23 @@ class KeyGenerator:
         key). Key maps sigma_{k^-1}(s) -> s so rotation is applied after
         key-switching (ckks_key_generator.c:238-268, is_fast path).
         LRU-evicts + regenerates beyond max_rot_keys."""
-        n = self.params.degree
-        auto_idx = nt.find_automorphism_index(rotation, 2 * n)
-        key = self._rot_keys.pop(auto_idx, None)
-        if key is None:
-            from ace_tpu_torch.runtime.timing import TIMING
-            with TIMING.tm("RTM_ROT_KEY_REGEN"):
-                gen_idx = nt.mod_inv(auto_idx, 2 * n)
-                rotated = P.automorphism(self.sk.ntt_sk, gen_idx, self.crt)
-                key = self._gen_switching_key(self.sk.ntt_sk, rotated)
-        self._lru_insert(auto_idx, key)
-        return auto_idx, key
+        m = 2 * self.params.degree
+        return self._auto_key(nt.find_automorphism_index(rotation, m))
 
     def conj_key(self) -> tuple[int, SwitchKey]:
         """Conjugation key (auto index 2N-1), held in the same LRU as the
         rotation keys (touched on use, bounded by max_rot_keys)."""
-        auto_idx = 2 * self.params.degree - 1
+        return self._auto_key(2 * self.params.degree - 1)
+
+    def _auto_key(self, auto_idx: int) -> tuple[int, SwitchKey]:
+        """The LRU's key of automorphism auto_idx, generated from the
+        inverse automorphism of the secret when absent."""
         key = self._rot_keys.pop(auto_idx, None)
         if key is None:
             from ace_tpu_torch.runtime.timing import TIMING
             with TIMING.tm("RTM_ROT_KEY_REGEN"):
-                # 2N-1 is its own inverse mod 2N, so gen_idx == auto_idx
-                rotated = P.automorphism(self.sk.ntt_sk, auto_idx, self.crt)
+                gen_idx = nt.mod_inv(auto_idx, 2 * self.params.degree)
+                rotated = P.automorphism(self.sk.ntt_sk, gen_idx, self.crt)
                 key = self._gen_switching_key(self.sk.ntt_sk, rotated)
         self._lru_insert(auto_idx, key)
         return auto_idx, key

@@ -86,20 +86,19 @@ class FheContext:
 
     # -- bootstrap precompute (context.c:162-185) -----------------------
 
-    def bootstrap_precom(self, slots: int = 0, level_budget=(3, 3)):
+    def bootstrap_precom(self, slots: int = 0):
         from ace_tpu_torch.ckks.bootstrap import BootstrapContext
         slots = slots or self.params.degree // 2
         if slots not in self._bts:
             with TIMING.tm("RTM_BS_SETUP"):
-                self._bts[slots] = BootstrapContext(
-                    self.evaluator, slots, level_budget)
+                self._bts[slots] = BootstrapContext(self.evaluator, slots)
         return self._bts[slots]
 
-    def bootstrap(self, ct, raise_level: int = 0):
-        """Bootstrap with lazy per-slot-count precompute
-        (cipher_eval.c:366-380)."""
+    def bootstrap(self, ct):
+        """Bootstrap to the top of the chain with lazy per-slot-count
+        precompute (cipher_eval.c:366-380)."""
         with TIMING.tm("RTM_BOOTSTRAP"):
-            return self.bootstrap_precom(ct.slots).bootstrap(ct, raise_level)
+            return self.bootstrap_precom(ct.slots).bootstrap(ct)
 
     # -- client side (io_api): encode/encrypt/decrypt --------------------
 

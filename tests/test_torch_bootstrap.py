@@ -185,7 +185,7 @@ def ref(vec):
 
 @pytest.fixture(scope="module")
 def bts(ref):
-    return TB.BootstrapContext(ref[0], level_budget=(3, 3))
+    return TB.BootstrapContext(ref[0])
 
 
 def ct_eq(got, want, what: str) -> None:
@@ -284,7 +284,7 @@ def test_transform_bit_exact_with_ref_plains(vec, ref, monkeypatch,
     are bit-exact: every key switch, automorphism and mod-down of the
     BSGS levels matches the reference binary."""
     ev, _ = ref
-    bts = TB.BootstrapContext(ev, level_budget=(3, 3))
+    bts = TB.BootstrapContext(ev)
     # C2S visits its main levels descending (2, 1), then the remainder
     # level 0; S2C ascending (0, 1), then the remainder level 2
     if encoding:
@@ -375,7 +375,7 @@ def test_bootstrap_decoded(vec, ref, bts, slots):
     own precision, as in tests/test_ref_bootstrap.py)."""
     ev, dec = ref
     if slots:
-        ctx = TB.BootstrapContext(ev, slots=slots, level_budget=(3, 3))
+        ctx = TB.BootstrapContext(ev, slots=slots)
         src, want = "bts_sparse_input", "bts_sparse_full"
     else:
         ctx, src, want = bts, "bts_input", "bts_full"
