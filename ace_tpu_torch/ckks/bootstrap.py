@@ -16,8 +16,7 @@ The per-level transforms (fully-packed AND sparse) use the reference's
 BSGS + extended-basis accumulation (Rotate_iteration :1237-1383,
 Evaluator.bsgs_iter_jit): baby-step hoisted rotations, giant-step
 rotations over mod-down-hoisted partials, b+g key-switches per level.
-Levels where BSGS has no advantage (g<=1) fall back to one hoisted
-rotation per band diagonal (Evaluator.rot_mac_groups_msgs_jit).
+fft_params gives every level at least two baby steps (g >= 2).
 
 Sine approximation constants are the reference's tables
 (ckks_bootstrap_context.h:60-101 hw<=192: K=32, R=3, 55 coeffs;
@@ -435,24 +434,11 @@ class BootstrapContext:
         Sparse packing works too: diagonals are the merged 2*slots
         conjugate-channel tables, so intermediates are 2*slots-periodic;
         `slots_value` (the offset-reduction period) and the diagonal
-        roll period both come from the merged diagonal length. Only
-        g<=1 levels (where the reference's grouping degenerates) fall
-        back to one hoisted rotation per band diagonal.
+        roll period both come from the merged diagonal length.
         """
+        assert g >= 2, f"fft_params gives g >= 2, got {g}"
         ev = self.ev
         nr = len(offs)
-        if g <= 1:
-            msgs = []
-            live = []
-            for off, diag in zip(offs, diags):
-                if not np.any(diag):
-                    continue
-                live.append(off)
-                msgs.append(ev.encoder.encode_msg_cached(
-                    diag, slots=len(diag)))
-            return ev.rot_mac_groups_msgs_jit(
-                ct, live, torch.stack(msgs)[None, :, :])[0]
-
         # Reference grouping (Rotate_iteration :1237-1383): the BABY
         # rotations are the centered offsets offs[0:g]; giant step i
         # rotates by +g*i*shift with its diagonals pre-rolled the

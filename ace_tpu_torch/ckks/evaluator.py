@@ -38,7 +38,8 @@ class Evaluator:
     def __init__(self, params: CkksParams, keygen: KeyGenerator,
                  encoder: Encoder, max_bundle: int = 5,
                  max_bundle_msg: int = 12):
-        """max_bundle: rotations per rot_sum_jit accumulation;
+        """max_bundle: rotations per rot_sum_jit and
+        rot_ext_mac_groups_jit accumulation;
         max_bundle_msg: rotations per rot_mac_groups_msgs_jit bundle.
         Larger sets are chunked and the mod-downed partials summed, as
         in ace_tpu (whose defaults these are), which keeps the residues
@@ -103,8 +104,16 @@ class Evaluator:
                           P.sub(a.c1, b.c1, self.crt),
                           a.scaling_factor, a.sf_degree, a.slots)
 
+    def negate(self, a: Ciphertext) -> Ciphertext:
+        return Ciphertext(P.neg(a.c0, self.crt), P.neg(a.c1, self.crt),
+                          a.scaling_factor, a.sf_degree, a.slots)
+
     def add_plain(self, a: Ciphertext, plain: Plaintext) -> Ciphertext:
         return Ciphertext(P.add(a.c0, plain.poly, self.crt), a.c1,
+                          a.scaling_factor, a.sf_degree, a.slots)
+
+    def sub_plain(self, a: Ciphertext, plain: Plaintext) -> Ciphertext:
+        return Ciphertext(P.sub(a.c0, plain.poly, self.crt), a.c1,
                           a.scaling_factor, a.sf_degree, a.slots)
 
     def _const_int(self, val: float, sf_degree: int) -> int:
@@ -230,12 +239,42 @@ class Evaluator:
                           a.scaling_factor / self.params.scaling_factor,
                           a.sf_degree - 1, a.slots)
 
+    def upscale(self, a: Ciphertext, mod_size: int) -> Ciphertext:
+        """Multiply by an encoding of 1.0 at scale 2^mod_size
+        (ckks_evaluator.c:331-345): a constant polynomial with coefficient
+        exactly 2^mod_size, so a per-limb scalar multiply."""
+        up = 1 << mod_size
+        return Ciphertext(
+            P.mul_scalars(a.c0, [up] * a.level, self.crt),
+            P.mul_scalars(a.c1, [up] * a.level, self.crt),
+            a.scaling_factor * float(up), a.sf_degree + 1, a.slots)
+
+    def downscale(self, a: Ciphertext, waterline: int) -> Ciphertext:
+        """Normalize the scale back to one Delta (ckks_evaluator.c:
+        347-366): upscale to 2^(waterline + sf bits), then rescale."""
+        sf_bits = self.params.scaling_mod_size
+        ciph_bits = int(np.log2(a.scaling_factor))
+        up = self.upscale(a, waterline + sf_bits - ciph_bits)
+        up = Ciphertext(up.c0, up.c1, up.scaling_factor, a.sf_degree + 1,
+                        up.slots)
+        return self.rescale(up)
+
     def mod_switch(self, a: Ciphertext) -> Ciphertext:
         """Drop the last limb without scaling (Mod_down_q_primes)."""
         lv = a.level - 1
         return Ciphertext(RnsPoly(a.c0.data[:lv], lv, 0, a.c0.is_ntt),
                           RnsPoly(a.c1.data[:lv], lv, 0, a.c1.is_ntt),
                           a.scaling_factor, a.sf_degree, a.slots)
+
+    def mod_switch_to_decode_floor(self, a: Ciphertext) -> Ciphertext:
+        """Drop residual limbs down to 3 (2 + 2*sf_degree above scale
+        degree 1) before a decrypt+decode: an exact mod-switch (message +
+        noise << the remaining modulus), so the decoded values are the
+        same and the exact-CRT decode costs the same at any level."""
+        floor = 3 if a.sf_degree <= 1 else 2 + 2 * a.sf_degree
+        while a.level > floor:
+            a = self.mod_switch(a)
+        return a
 
     # -- rotation --------------------------------------------------------
 
@@ -300,6 +339,50 @@ class Evaluator:
                           poly.num_q, crt.num_p, poly.is_ntt)
         return out
 
+    def to_ext(self, a: Ciphertext) -> Ciphertext:
+        """Embed a Q-basis ciphertext into the QP basis (x*P, zero P
+        rows); mod_down_ciph inverts it exactly."""
+        return Ciphertext(self._p_scale(a.c0, True),
+                          self._p_scale(a.c1, True),
+                          a.scaling_factor, a.sf_degree, a.slots)
+
+    def switch_key_precompute(self, poly: RnsPoly) -> list:
+        """Shared digit decompose + mod-up (Switch_key_precompute)."""
+        return self._switch_key_digits(poly)
+
+    def _add_p_c0(self, e0: RnsPoly, c0p: torch.Tensor) -> torch.Tensor:
+        """e0's data with P*c0 (c0p, over e0's q limbs) added to its q
+        limbs: the key-switched c0 of an ext rotation, before its
+        automorphism."""
+        level = e0.num_q
+        q, _, _ = self.crt.mod_arrays(range(level))
+        top = modops.add_mod(e0.data[:level], c0p, q)
+        return torch.cat([top, e0.data[level:]], dim=0)
+
+    def rotate_ext(self, a: Ciphertext, rotation: int, digits=None,
+                   add_first: bool = True) -> Ciphertext:
+        """Rotation in the extended basis (Fast_rotate_ext); the result
+        stays over QP. `digits` are shared switch-key digits from
+        switch_key_precompute(a.c1); add_first adds P*c0 before the
+        automorphism."""
+        if digits is None:
+            digits = self._switch_key_digits(a.c1)
+        crt = self.crt
+        auto_idx, key = self.keygen.rot_key(rotation)
+        e0, e1 = self._switch_key_ext(key, digits, a.c1.num_q)
+        if add_first:
+            e0 = RnsPoly(self._add_p_c0(e0, self._p_scale(a.c0).data),
+                         e0.num_q, e0.num_p, True)
+        return Ciphertext(P.automorphism(e0, auto_idx, crt),
+                          P.automorphism(e1, auto_idx, crt),
+                          a.scaling_factor, a.sf_degree, a.slots)
+
+    def mod_down_ciph(self, a: Ciphertext) -> Ciphertext:
+        """QP -> Q: one Reduce_rns_base per component."""
+        return Ciphertext(P.mod_down(a.c0, self.crt),
+                          P.mod_down(a.c1, self.crt),
+                          a.scaling_factor, a.sf_degree, a.slots)
+
     def _ext_rotations(self, ct: Ciphertext, rots: list) -> tuple:
         """The QP-basis rotations of ct for each r in rots, as two lists
         (c0, c1) of data tensors [LK, N]: one digit decompose/mod-up and
@@ -310,7 +393,6 @@ class Evaluator:
         level = ct.level
         cin0 = RnsPoly(ct.c0.data, level, 0, True)
         cin1 = RnsPoly(ct.c1.data, level, 0, True)
-        q_live, _, _ = crt.mod_arrays(range(level))
         ext0, ext1 = [], []
         digits = c0p = None
         for r in rots:
@@ -323,10 +405,8 @@ class Evaluator:
                 c0p = self._p_scale(cin0).data
             ai, key = self.keygen.rot_key(r)
             e0, e1 = self._switch_key_ext(key, digits, level)
-            top = modops.add_mod(e0.data[:level], c0p, q_live)
             order = crt.auto_order(ai)
-            ext0.append(torch.cat([top, e0.data[level:]], dim=0)
-                        .index_select(1, order))
+            ext0.append(self._add_p_c0(e0, c0p).index_select(1, order))
             ext1.append(e1.data.index_select(1, order))
         return ext0, ext1
 
@@ -355,6 +435,70 @@ class Evaluator:
         ct0 = items[0][0]
         return Ciphertext(P.mod_down(acc0, crt), P.mod_down(acc1, crt),
                           ct0.scaling_factor, ct0.sf_degree, ct0.slots)
+
+    def rot_ext_mac_groups_jit(self, ct: Ciphertext, rots: list,
+                               plain_groups: list) -> list:
+        """[sum_i rot(ct, rots[i]) * plain_groups[g][i] for g], with the
+        plaintexts given as extended-basis Plaintexts (or None where a
+        group does not use a rotation): one digit decompose/mod-up for
+        all rotations, the MACs in the QP basis, one mod-down per group
+        and component. Rotation sets beyond max_bundle are chunked and
+        the mod-downed partials summed, as in ace_tpu; a group with no
+        plaintext gives a zero ciphertext at the others' scale."""
+        if not plain_groups or all(all(p is None for p in grp)
+                                   for grp in plain_groups):
+            raise ValueError(
+                "rot_ext_mac_groups_jit: plain_groups must contain at "
+                "least one non-None plaintext")
+        dead = [g for g, grp in enumerate(plain_groups)
+                if all(p is None for p in grp)]
+        if dead:
+            live = [g for g in range(len(plain_groups)) if g not in dead]
+            parts = self.rot_ext_mac_groups_jit(
+                ct, rots, [plain_groups[g] for g in live])
+            total = [None] * len(plain_groups)
+            for g, part in zip(live, parts):
+                total[g] = part
+            zero = self.sub(parts[0], parts[0])
+            for g in dead:
+                total[g] = zero
+            return total
+        if len(rots) > self.max_bundle:
+            step = self.max_bundle
+            total = [None] * len(plain_groups)
+            for s in range(0, len(rots), step):
+                sub_groups = [grp[s:s + step] for grp in plain_groups]
+                live = [g for g, grp in enumerate(sub_groups)
+                        if any(p is not None for p in grp)]
+                if not live:
+                    continue
+                parts = self.rot_ext_mac_groups_jit(
+                    ct, rots[s:s + step], [sub_groups[g] for g in live])
+                for g, part in zip(live, parts):
+                    total[g] = part if total[g] is None \
+                        else self.add(total[g], part)
+            ref = next(x for x in total if x is not None)
+            return [self.sub(ref, ref) if v is None else v for v in total]
+        crt = self.crt
+        level, num_p = ct.level, crt.num_p
+        ext0, ext1 = self._ext_rotations(ct, rots)
+        outs = []
+        for grp in plain_groups:
+            acc0 = acc1 = None
+            for e0, e1, pl in zip(ext0, ext1, grp):
+                if pl is None:
+                    continue
+                p = RnsPoly(pl.poly.data, level, num_p, True)
+                t0 = P.mul(RnsPoly(e0, level, num_p, True), p, crt)
+                t1 = P.mul(RnsPoly(e1, level, num_p, True), p, crt)
+                acc0 = t0 if acc0 is None else P.add(acc0, t0, crt)
+                acc1 = t1 if acc1 is None else P.add(acc1, t1, crt)
+            pl_scale = next(p.scaling_factor for p in grp if p is not None)
+            outs.append(Ciphertext(P.mod_down(acc0, crt),
+                                   P.mod_down(acc1, crt),
+                                   ct.scaling_factor * pl_scale,
+                                   ct.sf_degree + 1, ct.slots))
+        return outs
 
     def _lift_msgs(self, msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
         """int64 messages [..., N] -> canonical residues [..., LK, N] at

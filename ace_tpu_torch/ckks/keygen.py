@@ -240,6 +240,11 @@ class KeyGenerator:
         m = 2 * self.params.degree
         return self._auto_key(nt.find_automorphism_index(rotation, m))
 
+    def all_keys(self) -> list[SwitchKey]:
+        """Every evaluation key held (for the key-memory report,
+        context.c:100-107)."""
+        return [self.relin_key] + list(self._rot_keys.values())
+
     def conj_key(self) -> tuple[int, SwitchKey]:
         """Conjugation key (auto index 2N-1), held in the same LRU as the
         rotation keys (touched on use, bounded by max_rot_keys)."""

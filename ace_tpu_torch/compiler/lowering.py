@@ -31,13 +31,27 @@ class GraphRunner:
         self.bootstrap_before_relu = bootstrap_before_relu
         self.trace = trace  # callable(msg) — the -trace per-op log
 
-    def run(self, x):
+    def run(self, x, checkpoint: str = ""):
         """x: packed input handle (plain vector or ciphertext) holding
-        the NCHW-flattened image."""
+        the NCHW-flattened image.
+
+        checkpoint: optional .npz path; when set, the live environment
+        is persisted after every op and an existing file resumes the
+        run at its recorded op index (exact: the level trajectory is
+        static), its ciphertexts placed on x's device. Plain-ciphertext
+        backends only."""
+        import os as _os
         import time as _time
         from ace_tpu_torch.runtime.timing import TIMING
         be = self.be
         env = {self.g.input_name: x}
+        start_idx = 0
+        if checkpoint and _os.path.exists(checkpoint):
+            from ace_tpu_torch.runtime import ckpt as _ckpt
+            env, start_idx = _ckpt.load(checkpoint, x.c0.data.device)
+            if self.trace is not None:
+                self.trace(f"resumed checkpoint at op {start_idx + 1}/"
+                           f"{len(self.g.ops)}")
         # names still needed strictly after op i (for dead-value drop)
         needed_after = [set() for _ in self.g.ops]
         live = {self.g.output_name}
@@ -46,6 +60,8 @@ class GraphRunner:
             live.update(n for n in self.g.ops[i].inputs
                         if n not in self.g.weights)
         for op_idx, op in enumerate(self.g.ops):
+            if op_idx < start_idx:
+                continue
             t_op = _time.perf_counter()
             xin = env[op.inputs[0]]
             if op.op_type == "Conv":
@@ -131,6 +147,9 @@ class GraphRunner:
             if self.trace is not None:
                 self.trace(f"[{op_idx + 1}/{len(self.g.ops)}] "
                            f"{op.op_type} {op.name}: {dt:.2f}s")
+            if checkpoint:
+                from ace_tpu_torch.runtime import ckpt as _ckpt
+                _ckpt.save(checkpoint, env, op_idx + 1)
         return env[self.g.output_name]
 
     def _relu(self, xin, op):

@@ -11,14 +11,38 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
-from ace_tpu_torch.compiler.onnx_front import NNGraph
+from ace_tpu_torch.compiler.onnx_front import load_onnx, NNGraph
 from ace_tpu_torch.compiler.lowering import GraphRunner
 from ace_tpu_torch.compiler import packing as pk
 from ace_tpu_torch.compiler.scheme_info import SchemeConfig, select_params
 from ace_tpu_torch.runtime.timing import TIMING
+
+# the pre-trained ONNX exports of the ACE reference checkout, which sits
+# beside this repository (read only; absent where the reference is not
+# checked out)
+REFERENCE_MODEL_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "reference", "model")
+
+MODEL_FILES = {
+    "resnet20_cifar10": "resnet20_cifar10_pre.onnx",
+    "resnet32_cifar10": "resnet32_cifar10_pre.onnx",
+    "resnet32_cifar100": "resnet32_cifar100_pre.onnx",
+    "resnet44_cifar10": "resnet44_cifar10_pre.onnx",
+    "resnet56_cifar10": "resnet56_cifar10_pre.onnx",
+}
+
+# dataset/resnet_cifar.main.inc:44-45
+CIFAR_MEAN = np.array([0.485, 0.456, 0.406])
+CIFAR_STDEV = np.array([0.229, 0.224, 0.225])
+
+
+def model_path(name: str, model_dir: str = REFERENCE_MODEL_DIR) -> str:
+    return os.path.join(model_dir, MODEL_FILES[name])
 
 
 def build_resnet_cifar(blocks_per_stage: int, classes: int = 10,
@@ -185,6 +209,37 @@ def _calibrate_to_relu_ranges(g: NNGraph, rng) -> None:
             acts[op.outputs[0]] = acts[op.inputs[0]] @ wt.T
 
 
+def load_model(name: str, model_dir: str = REFERENCE_MODEL_DIR) -> NNGraph:
+    """resnet110_cifar10 is built natively (build_resnet_cifar(18)); every
+    other name loads its ONNX export from model_dir."""
+    if name == "resnet110_cifar10":
+        return build_resnet_cifar(18)
+    path = model_path(name, model_dir)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"model {name!r}: ONNX file {path} not found (the reference's "
+            f"pre-trained exports are not checked out)")
+    return load_onnx(path)
+
+
+def read_cifar_batch(path: str, count: int = 0, classes: int = 10):
+    """Binary CIFAR batch reader (nn-addon/include/nn/util/
+    cifar_reader.h:95-117): per-record [label(+coarse for cifar100)]
+    then 3x32x32 RGB bytes; normalized (x/255 - mean) / stdev."""
+    label_size = 1 if classes == 10 else 2
+    rec = label_size + 3 * 32 * 32
+    raw = np.fromfile(path, dtype=np.uint8)
+    n = len(raw) // rec
+    if count:
+        n = min(n, count)
+    raw = raw[:n * rec].reshape(n, rec)
+    labels = raw[:, label_size - 1].astype(np.int64)
+    imgs = raw[:, label_size:].reshape(n, 3, 32, 32).astype(np.float64)
+    imgs = (imgs / 255.0 - CIFAR_MEAN[None, :, None, None]) \
+        / CIFAR_STDEV[None, :, None, None]
+    return imgs, labels
+
+
 @dataclasses.dataclass
 class CompiledModel:
     """An ONNX model bound to CKKS parameters and a runtime context."""
@@ -202,15 +257,20 @@ class CompiledModel:
 ROT_KEY_BUDGET_BYTES = 40 << 30
 
 
-def compile_model(g: NNGraph, cfg: SchemeConfig | None = None,
+def compile_model(name_or_graph, cfg: SchemeConfig | None = None,
                   ctx=None, num_classes: int = 10,
+                  check_every: bool = False,
                   max_rot_keys: int = 0, trace=None,
                   device=None) -> CompiledModel:
-    """NN graph -> params -> runtime context ->
-    encrypted executable (GraphRunner over the FheBackend). device: None
-    runs on the card; "cpu" runs the plain versions."""
+    """NN graph (or a load_model name) -> params -> runtime context ->
+    encrypted executable (GraphRunner over the FheBackend). check_every:
+    run through a ValidatingBackend that decrypts and checks after every
+    op (--rtt). device: None runs on the card; "cpu" runs the plain
+    versions."""
     from ace_tpu_torch.runtime.context import FheContext
 
+    g = load_model(name_or_graph) if isinstance(name_or_graph, str) \
+        else name_or_graph
     cfg = cfg or SchemeConfig()
     scheme = select_params(g, cfg)
     if ctx is None:
@@ -221,6 +281,9 @@ def compile_model(g: NNGraph, cfg: SchemeConfig | None = None,
         trace(ctx.hbm_plan())
     be = pk.FheBackend(ctx.evaluator, ctx.encoder,
                        bootstrap_fn=ctx.bootstrap)
+    if check_every:
+        from ace_tpu_torch.runtime.validate import ValidatingBackend
+        be = ValidatingBackend(be, check_every=True)
     runner = GraphRunner(
         g, be, relu_ranges=cfg.relu_ranges,
         relu_range_default=cfg.relu_value_range,
@@ -274,13 +337,25 @@ def calibrate_relu_ranges(graph: NNGraph, images,
     return vr_default, out
 
 
-def infer_encrypted(model: CompiledModel, image: np.ndarray) -> np.ndarray:
+def infer_encrypted(model: CompiledModel, image: np.ndarray,
+                    checkpoint: str = "") -> np.ndarray:
     """One encrypted inference; returns the first num_classes decrypted
-    output values."""
+    output values. `checkpoint`: optional resume file (see
+    GraphRunner.run)."""
+    from ace_tpu_torch.runtime.validate import ValidatingBackend, Shadow
     ctx = model.ctx
     ctx.prepare_input(image, "input", level=model.scheme.input_level)
     x = ctx.get_input_data("input")
+    be = model.runner.be
+    if isinstance(be, ValidatingBackend):
+        msg = np.zeros(be.n_slots)
+        flat = np.asarray(image, np.float64).reshape(-1)
+        msg[:flat.size] = flat
+        x = Shadow(x, msg)
     with TIMING.tm("RTM_MAIN_GRAPH"):
-        out = model.runner.run(x)
+        out = model.runner.run(x, checkpoint=checkpoint)
+    if isinstance(be, ValidatingBackend):
+        be.check(out, "graph output")
+        out = out.ct
     ctx.set_output_data("output", out)
     return ctx.handle_output("output", model.num_classes)

@@ -52,6 +52,8 @@ class FheContext:
                                        max_rot_keys=max_rot_keys)
             self.evaluator = Evaluator(params, self.keygen, self.encoder)
         self._bts = {}  # slot count -> BootstrapContext
+        self.pt_mgr = None
+        self.manifest = None
         self._io_inputs: dict[str, object] = {}
         self._io_outputs: dict[str, object] = {}
 
@@ -84,6 +86,40 @@ class FheContext:
                    msg_budget / 2**30, pt_budget / 2**30,
                    work / 2**30, bundle, L, total / 2**30))
 
+    @classmethod
+    def from_manifest(cls, path: str, **kw) -> "FheContext":
+        """Rebuild a runtime context from a compile-driver manifest
+        (the analog of the generated Get_context_params consumed by
+        Prepare_context — eg_fhertlib_add.inc:15-24, context.c:29-86).
+
+        Restores the scheme parameters, opens the weight file if the
+        manifest names one, and pre-warms the rotation-key LRU with the
+        manifest's rotation inventory (up to the LRU capacity), as
+        ace_tpu's does. kw go to the constructor (device, max_rot_keys,
+        ...)."""
+        import json
+        import os
+        from ace_tpu_torch.compiler.scheme_info import SchemeInfo
+        with open(path) as f:
+            m = json.load(f)
+        s = dict(m["scheme"])
+        s["rotate_indices"] = tuple(s.get("rotate_indices", ()))
+        ctx = cls(scheme_info=SchemeInfo(**s), **kw)
+        ctx.manifest = m
+        wf = m.get("weights_file")
+        if wf:
+            if not os.path.isabs(wf):
+                wf = os.path.join(os.path.dirname(os.path.abspath(path)),
+                                  wf)
+            if os.path.exists(wf):
+                ctx.open_weight_file(wf)
+        rots = m.get("rotate_indices", [])
+        cap = ctx.keygen.max_rot_keys or len(rots)
+        for r in rots[:cap]:
+            if r:
+                ctx.keygen.rot_key(int(r))
+        return ctx
+
     # -- bootstrap precompute (context.c:162-185) -----------------------
 
     def bootstrap_precom(self, slots: int = 0):
@@ -99,6 +135,14 @@ class FheContext:
         precompute (cipher_eval.c:366-380)."""
         with TIMING.tm("RTM_BOOTSTRAP"):
             return self.bootstrap_precom(ct.slots).bootstrap(ct)
+
+    # -- weight manager ---------------------------------------------------
+
+    def open_weight_file(self, path: str):
+        from ace_tpu_torch.runtime.rt_data import RtDataReader, PtManager
+        self.pt_mgr = PtManager(RtDataReader(path), self.encoder,
+                                path=path)
+        return self.pt_mgr
 
     # -- client side (io_api): encode/encrypt/decrypt --------------------
 
@@ -130,9 +174,21 @@ class FheContext:
         above the floor are dropped first (exact mod-switch: message +
         noise << the remaining modulus), which keeps the exact-CRT
         decode cheap at any output level."""
-        ct = self._io_outputs[name]
-        floor = 3 if ct.sf_degree <= 1 else 2 + 2 * ct.sf_degree
-        while ct.level > floor:
-            ct = self.evaluator.mod_switch(ct)
-        pt = self.evaluator.decrypt(ct)
+        ev = self.evaluator
+        pt = ev.decrypt(ev.mod_switch_to_decode_floor(self._io_outputs[name]))
         return self.encoder.decode(pt, length).real
+
+    # -- reporting (Finalize_context) -------------------------------------
+
+    def key_memory_bytes(self) -> int:
+        """Total evaluation-key device memory (context.c:100-107)."""
+        return sum(p.data.numel() * p.data.element_size()
+                   for key in self.keygen.all_keys()
+                   for p in (*key.b, *key.a))
+
+    def finalize(self) -> str:
+        with TIMING.tm("RTM_FINALIZE_CONTEXT"):
+            report = ["[RT_STAT] key memory: %.1f MB"
+                      % (self.key_memory_bytes() / 2**20)]
+            report.append(TIMING.report())
+        return "\n".join(report)

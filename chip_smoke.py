@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero and prints no result line.
+Seven phases; any failure exits non-zero and prints no result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -29,6 +29,12 @@ Six phases; any failure exits non-zero and prints no result line.
      compile_model and infer_encrypted, cold then warm: finite logits,
      argmax equal to infer_plain's, max_err <= 0.1 * max|plain|. The
      kernel rows' `launches` count this warm inference.
+  7. the compile driver and runtime services at ResNet-20's parameters
+     (see phase_runtime_services): the driver's manifest and weight file
+     from build_resnet_cifar(3) written as ONNX, a context rebuilt from
+     them (keys pre-warmed, the weight file through the native loader),
+     a validated run (--rtt) that must pass and a perturbed one that
+     must raise, and a checkpointed ops[:6] resumed bit-exact.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -689,6 +695,315 @@ def phase_resnet20() -> dict:
             "max_plain": scale, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the compile driver and runtime services
+# ---------------------------------------------------------------------------
+
+# Manifest rotation keys pre-warmed in phase 7 (the LRU's capacity too):
+# at 0.1-0.35 s a key on an H100, under about 25 s of keygen, and room
+# for every key of ops[:6] (the bit-exact resume needs them held).
+PREWARM_KEYS = 64
+# Ops of ResNet-20's ops[:6] run under the validator (epsilon 1e-2, every
+# op checked); the ReLU's composite-sign error exceeds epsilon, so the
+# validated prefix is the stem conv.
+VALIDATED_OPS = 1
+CKKS_FLAGS = "-CKKS:sk_hw=192:q0=60:sf=56:sec=0"
+
+
+def write_onnx(g, path: str) -> None:
+    """Write an NNGraph as an ONNX model with the port's generated
+    bindings, as tests/test_frontend_hardening.py builds one: one node per
+    op with its attributes, the weights as raw initializers in their own
+    dtypes, the input with its shape. load_onnx gives the graph back."""
+    from ace_tpu_torch.compiler.onnx_front import _onnx_pb2
+    pb = _onnx_pb2()
+    dtypes = {np.dtype(np.float32): 1, np.dtype(np.int64): 7,
+              np.dtype(np.float64): 11}
+    m = pb.ModelProto()
+    gp = m.graph
+    for op in g.ops:
+        n = gp.node.add()
+        n.op_type, n.name = op.op_type, op.name
+        n.input.extend(op.inputs)
+        n.output.extend(op.outputs)
+        for k, v in op.attrs.items():
+            a = n.attribute.add()
+            a.name = k
+            if isinstance(v, int):
+                a.type, a.i = pb.AttributeProto.INT, v
+            elif isinstance(v, float):
+                a.type, a.f = pb.AttributeProto.FLOAT, v
+            else:
+                a.type = pb.AttributeProto.INTS
+                a.ints.extend(int(x) for x in v)
+    for name, arr in g.weights.items():
+        arr = np.asarray(arr)
+        t = gp.initializer.add()
+        t.name, t.data_type = name, dtypes[arr.dtype]
+        t.dims.extend(arr.shape)
+        t.raw_data = arr.tobytes()
+    vi = gp.input.add()
+    vi.name = g.input_name
+    for d in g.input_shape:
+        vi.type.tensor_type.shape.dim.add().dim_value = d
+    gp.output.add().name = g.output_name
+    with open(path, "wb") as f:
+        f.write(m.SerializeToString())
+
+
+def _prefix(g, k: int):
+    from ace_tpu_torch.compiler.onnx_front import NNGraph
+    return NNGraph(g.ops[:k], g.weights, g.input_name, g.input_shape,
+                   g.ops[k - 1].outputs[0])
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def phase_runtime_services(g, img, vr_default: float, vr: dict,
+                           device: str = "cuda", ckks_flags=CKKS_FLAGS,
+                           prewarm_keys: int = PREWARM_KEYS,
+                           validated_ops: int = VALIDATED_OPS,
+                           expect=(DEGREE, NUM_Q - 1)) -> dict:
+    """The CNN path's remaining entry points on graph g (ResNet-20 on the
+    card; main() passes build_resnet_cifar(3) and phase 6's calibration):
+      a. compile: g written as ONNX, then the compile driver
+         (python -m ace_tpu_torch.driver) with the reference's flags and
+         the calibrated ReLU ranges -> manifest + weight file; the
+         manifest's scheme must equal select_params on the loaded graph;
+      b. reload: FheContext.from_manifest, pre-warming prewarm_keys
+         rotation keys; the weight file opened through the native loader;
+         the first conv's weight from the manifest's weight file equal,
+         residue for residue, to a direct encode at the top level;
+      c. validated run (--rtt): compile_model(check_every=True) and
+         infer_encrypted over ops[:validated_ops] (epsilon 1e-2 after
+         every op); then an input ciphertext perturbed by an added
+         constant must raise ValidationError;
+      d. checkpoint resume: one encrypted input through ops[:6]
+         uninterrupted; again with a checkpoint file and a crash during op
+         4; a fresh GraphRunner resumes from the file, and its output must
+         equal the uninterrupted one residue for residue;
+      e. how many of the pre-warmed manifest keys c and d used.
+    Every kernel's counter must grow over c and d."""
+    import copy
+    import dataclasses
+    import tempfile
+    import torch
+    from ace_tpu_torch import driver
+    from ace_tpu_torch.ckks.bootstrap import bootstrap_rotation_indices
+    from ace_tpu_torch.compiler.lowering import GraphRunner
+    from ace_tpu_torch.compiler.onnx_front import load_onnx
+    from ace_tpu_torch.compiler.scheme_info import (SchemeConfig,
+                                                    select_params)
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.runtime import ckpt
+    from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.runtime.timing import TIMING
+    from ace_tpu_torch.runtime.validate import Shadow, ValidationError
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    TIMING.enabled = True
+    tag = "[phase 7]"
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # a. compile
+        onnx = os.path.join(tmp, "model.onnx")
+        wfile = os.path.join(tmp, "model.msg")
+        mfile = os.path.join(tmp, "model.manifest.json")
+        write_onnx(g, onnx)
+        sihe = (f"-SIHE:relu_depth=9:relu_vr_def={vr_default!r}:relu_vr="
+                + ";".join(f"{k}={v!r}" for k, v in vr.items()))
+        t0 = time.perf_counter()
+        rc = driver.main([onnx, ckks_flags, sihe, f"-P2C:df={wfile}", "-o",
+                          mfile])
+        res["compile_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"compile driver returned {rc}")
+        with open(mfile) as f:
+            man = json.load(f)
+        gl = load_onnx(onnx)
+        if [dataclasses.asdict(o) for o in gl.ops] != \
+                [dataclasses.asdict(o) for o in g.ops]:
+            raise AssertionError("the ONNX file does not load back to g")
+        cfg = SchemeConfig(**man["config"])
+        want = dataclasses.asdict(select_params(gl, cfg))
+        want["rotate_indices"] = list(want["rotate_indices"])
+        if man["scheme"] != want:
+            raise AssertionError(f"manifest scheme {man['scheme']} != "
+                                 f"select_params {want}")
+        si = man["scheme"]
+        if (si["poly_degree"], si["mul_level"]) != expect:
+            raise AssertionError(f"manifest N, mul_level "
+                                 f"{si['poly_degree'], si['mul_level']} "
+                                 f"!= {expect}")
+        rots = man["rotate_indices"]
+        if not rots:
+            raise AssertionError("manifest lists no rotation")
+        n_bts = len(set(rots) & set(bootstrap_rotation_indices(
+            si["poly_degree"])))
+        res["rotations"] = len(rots)
+        log(f"{tag} a. compile driver {res['compile_s']:.2f} s: "
+            f"{len(gl.ops)} ops, N={si['poly_degree']} "
+            f"mul_level={si['mul_level']} input_level={si['input_level']}; "
+            f"{len(rots)} rotation indices ({n_bts} from "
+            f"bootstrap_rotation_indices); weight file "
+            f"{os.path.getsize(wfile)} bytes, manifest == select_params")
+
+        # b. reload from the manifest
+        TIMING.reset()
+        t0 = time.perf_counter()
+        ctx = FheContext.from_manifest(mfile, max_rot_keys=prewarm_keys,
+                                       device=device)
+        sync()
+        res["context_s"] = time.perf_counter() - t0
+        n_keys = TIMING.count("RTM_ROT_KEY_REGEN")
+        t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
+        res["s_per_key"] = t_keys / max(n_keys, 1)
+        prewarmed = set(ctx.keygen._rot_keys)
+        mgr = ctx.pt_mgr
+        if mgr is None or mgr.bio_engine == "mmap":
+            raise AssertionError("the weight file did not open through the "
+                                 "native loader")
+        res["bio_engine"] = mgr.bio_engine
+        wname = g.ops[0].inputs[1]
+        top = ctx.params.num_q
+        mgr.prefetch(wname)
+        t0 = time.perf_counter()
+        got = mgr.get(wname, top)
+        sync()
+        t_get = time.perf_counter() - t0
+        w = gl.weights[wname].reshape(-1)
+        msg = np.zeros(ctx.params.degree // 2, np.complex128)
+        msg[:w.size] = w
+        ref = ctx.encoder.encode(msg, level=top)
+        if got.poly.data.device.type != ctx.device.type:
+            raise AssertionError(f"weight-file plaintext on "
+                                 f"{got.poly.data.device}, not {ctx.device}")
+        if not torch.equal(got.poly.data, ref.poly.data):
+            raise AssertionError(f"weight-file plaintext {wname} differs "
+                                 f"from encode")
+        log(f"{tag} b. from_manifest {res['context_s']:.2f} s on "
+            f"{ctx.device}: {n_keys} keys pre-warmed in {t_keys:.2f} s "
+            f"({res['s_per_key']:.3f} s a key); weight file through the "
+            f"native loader ({mgr.bio_engine}); {wname} at level {top} "
+            f"({w.size} values, prefetched, get {t_get:.3f} s) == encode, "
+            f"residue for residue")
+
+        # c. validated run, then a perturbed input
+        used = set()
+        auto_key = ctx.keygen._auto_key
+
+        def spy(ai):
+            used.add(ai)
+            return auto_key(ai)
+        ctx.keygen._auto_key = spy
+        reset_counters()
+        cfg6 = dataclasses.replace(cfg, use_bootstrap=False)
+        gv = _prefix(gl, validated_ops)
+        out_len = int(np.prod(gv.ops[-1].out_shape))
+        vmodel = M.compile_model(gv, cfg6, ctx=ctx, num_classes=out_len,
+                                 check_every=True)
+        vbe = vmodel.runner.be
+        t0 = time.perf_counter()
+        out_v = M.infer_encrypted(vmodel, img)
+        sync()
+        res["validated_s"] = time.perf_counter() - t0
+        res["checks"] = vbe._op_count + 1  # every op, and the output
+        plain = M.infer_plain(gv, img, n_slots=vbe.n_slots)[:out_len]
+        err = float(np.max(np.abs(out_v - plain)))
+        log(f"{tag} c. validated ops[:{validated_ops}] ("
+            f"{', '.join(o.op_type for o in gv.ops)}): {res['checks']} "
+            f"checks within epsilon {vbe.epsilon} in "
+            f"{res['validated_s']:.2f} s; output max_err {err:.3e}")
+        ct = ctx.prepare_input(img, "input", level=vmodel.scheme.input_level)
+        smsg = np.zeros(vbe.n_slots)
+        smsg[:img.size] = np.asarray(img, np.float64).reshape(-1)
+        bad = Shadow(ctx.evaluator.add_const(ct, 0.05), smsg)
+        try:
+            vmodel.runner.run(bad)
+        except ValidationError as exc:
+            log(f"{tag} c. input + 0.05: ValidationError: {exc}")
+        else:
+            raise AssertionError("a perturbed ciphertext passed validation")
+
+        # d. checkpoint resume
+        g6 = _prefix(gl, 6)
+        out_len = int(np.prod(g6.ops[-1].out_shape))
+        model = M.compile_model(g6, cfg6, ctx=ctx, num_classes=out_len)
+        ct = ctx.prepare_input(img, "input", level=model.scheme.input_level)
+        t0 = time.perf_counter()
+        full = model.runner.run(ct)
+        sync()
+        t_full = time.perf_counter() - t0
+        ck = os.path.join(tmp, "ops6.npz")
+
+        def crash_in_op4(msg):
+            if msg.startswith("[4/"):
+                raise _Interrupted
+        first = copy.copy(model.runner)
+        first.trace = crash_in_op4
+        try:
+            first.run(ct, checkpoint=ck)
+        except _Interrupted:
+            pass
+        else:
+            raise AssertionError("the run was not interrupted")
+        res["ckpt_bytes"] = os.path.getsize(ck)
+        t0 = time.perf_counter()
+        env, nxt = ckpt.load(ck, ctx.device)
+        sync()
+        res["ckpt_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "copy.npz"), env, nxt)
+        res["ckpt_save_s"] = time.perf_counter() - t0
+        if nxt != 3:
+            raise AssertionError(f"checkpoint at op {nxt}, expected 3")
+        r = model.runner
+        fresh = GraphRunner(g6, r.be, relu_ranges=r.relu_ranges,
+                            relu_range_default=r.relu_range_default,
+                            relu_mul_depth=r.relu_mul_depth)
+        t0 = time.perf_counter()
+        out = fresh.run(ct, checkpoint=ck)
+        sync()
+        t_res = time.perf_counter() - t0
+        if not all(torch.equal(getattr(out, c).data, getattr(full, c).data)
+                   for c in ("c0", "c1")):
+            raise AssertionError("resumed ops[:6] differs from the "
+                                 "uninterrupted run")
+        ctx.set_output_data("resumed", out)
+        dec = ctx.handle_output("resumed", out_len)
+        plain = M.infer_plain(g6, img, n_slots=vbe.n_slots)[:out_len]
+        err = float(np.max(np.abs(dec - plain)))
+        scale = float(np.max(np.abs(plain)))
+        if not err <= 5e-2 * scale:
+            raise AssertionError(f"resumed output max_err {err} > 5e-2 * "
+                                 f"{scale}")
+        log(f"{tag} d. ops[:6] uninterrupted {t_full:.2f} s; crashed in op "
+            f"4, checkpoint after op {nxt}: {res['ckpt_bytes']} bytes "
+            f"({len(env)} ciphertexts), load {res['ckpt_load_s']:.3f} s, "
+            f"save {res['ckpt_save_s']:.3f} s; resumed ops 4-6 in "
+            f"{t_res:.2f} s == uninterrupted, residue for residue; max_err "
+            f"{err:.3e} of max|plain| {scale:.3f}")
+        launches = read_counters()
+        res["launches"] = launches
+
+        # e. manifest key hits
+        hits = prewarmed & used
+        res["key_hits"] = len(hits)
+        log(f"{tag} e. manifest keys: {len(prewarmed)} pre-warmed, "
+            f"{len(used)} used by c and d, {len(hits)} of them pre-warmed, "
+            f"{len(used - prewarmed)} made on demand; launches over c and "
+            f"d {launches}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in phase 7: {idle}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -726,6 +1041,23 @@ def main() -> int:
             f"of max|plain| {full['max_plain']:.3f}, peak "
             f"{full['peak_gib']:.2f} GiB; total "
             f"{time.perf_counter() - t_start:.1f} s on {dev['card']}")
+        from ace_tpu_torch.compiler.relu_ranges import ranges_for
+        from ace_tpu_torch.models import resnet as M
+        g = M.build_resnet_cifar(3)
+        img = np.random.default_rng(0).uniform(-1.5, 1.5, (1, 3, 32, 32))[0]
+        vr_default, vr = M.calibrate_relu_ranges(
+            g, [img], *ranges_for("resnet20_cifar10"))
+        t0 = time.perf_counter()
+        svc = phase_runtime_services(g, img, vr_default, vr)
+        log(f"[summary] runtime services {time.perf_counter() - t0:.1f} s: "
+            f"compile {svc['compile_s']:.2f} s ({svc['rotations']} "
+            f"rotations), {svc['s_per_key']:.3f} s a pre-warmed key, "
+            f"{svc['key_hits']} manifest keys used, validated "
+            f"ops[:{VALIDATED_OPS}] {svc['checks']} checks in "
+            f"{svc['validated_s']:.2f} s, checkpoint {svc['ckpt_bytes']} "
+            f"bytes (save {svc['ckpt_save_s']:.3f} s, load "
+            f"{svc['ckpt_load_s']:.3f} s), loader {svc['bio_engine']}; "
+            f"script {time.perf_counter() - t_start:.1f} s")
         print(dev["card"])
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@
     own diagonal plaintexts, CoeffsToSlots and SlotsToCoeffs bit-exact;
     the self-computed diagonals within one llround step; approx-mod and
     recombine within 1e-8 decoded; full and sparse bootstrap within 1e-6.
-(c) conjugate, mul_by_monomial, bsgs_iter_jit and a g <= 1 level on the
-    same keys and ciphertexts as ace_tpu give the same residues.
+(c) conjugate, mul_by_monomial and bsgs_iter_jit on the same keys and
+    ciphertexts as ace_tpu give the same residues; every collapsed level
+    has at least two baby steps.
 """
 
 import gzip
@@ -450,18 +451,20 @@ def test_bsgs_iter_match(pair, giants):
     assert_ct_equal(got, want)
 
 
-def test_bsgs_level_fallback_match(pair):
-    """A collapsed level with g <= 1 takes one hoisted rotation per
-    non-zero band diagonal (rot_mac_groups_msgs_jit) in both packages:
-    a zero diagonal is skipped, the result's residues are equal."""
-    ev, tev = pair
-    rng = np.random.default_rng(13)
-    offs = [31, 0, 1, 2]
-    diags = [rng.uniform(-1, 1, 32) + 1j * rng.uniform(-1, 1, 32)
-             for _ in offs]
-    diags[2] = np.zeros(32, np.complex128)
-    a = _ct(ev, 4, seed=11)
-    want = B.BootstrapContext(ev)._bsgs_level(a, offs, diags, 1, 1, 32)
-    got = TB.BootstrapContext(tev)._bsgs_level(port_ct(a), offs, diags, 1,
-                                               1, 32)
-    assert_ct_equal(got, want)
+@pytest.mark.parametrize("log_slots", range(1, 15))
+def test_fft_params_give_two_baby_steps(log_slots):
+    """Every collapsed level has g >= 2 baby steps (and g_rem >= 2 where
+    a remainder level exists), at the budgets BootstrapContext uses for
+    2 to 2^14 slots: _bsgs_level never meets g < 2."""
+    for budget in TB.LEVEL_BUDGET:
+        p = TB.fft_params(1 << log_slots, min(budget, log_slots) or 1)
+        assert p["g"] >= 2
+        assert p["g_rem"] >= 2 if p["flag_rem"] else p["g_rem"] == 0
+
+
+def test_bsgs_level_refuses_one_baby_step(pair):
+    _, tev = pair
+    a = port_ct(_ct(pair[0], 4, seed=11))
+    with pytest.raises(AssertionError, match="g >= 2"):
+        TB.BootstrapContext(tev)._bsgs_level(
+            a, [31, 0, 1, 2], [np.zeros(32, np.complex128)] * 4, 1, 1, 32)

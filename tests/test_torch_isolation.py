@@ -1,7 +1,9 @@
 """PyTorch port: it stands alone. No file of ace_tpu_torch/, nor
 chip_smoke.py or run_resnet_torch.py, imports jax or ace_tpu; importing
-the port leaves jax unloaded; its entry points refuse to fall back to
-the CPU silently."""
+the port leaves jax unloaded; it reads no environment variable but the
+runtime timer's; its native host code is a source that builds outside
+the package; its entry points refuse to fall back to the CPU
+silently."""
 
 import ast
 import os
@@ -43,13 +45,41 @@ def test_no_jax_or_ace_tpu_imports():
 def test_import_leaves_jax_unloaded():
     code = ("import sys; import ace_tpu_torch.models.resnet, "
             "ace_tpu_torch.interop, ace_tpu_torch.ops.ntt4, "
-            "ace_tpu_torch.ops.kernels; "
+            "ace_tpu_torch.ops.kernels, ace_tpu_torch.driver, "
+            "ace_tpu_torch.utils.options, ace_tpu_torch.runtime.validate, "
+            "ace_tpu_torch.runtime.ckpt, ace_tpu_torch.runtime.rt_data, "
+            "ace_tpu_torch.runtime.block_io; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'ace_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_reads_only_the_timing_variable():
+    """os.environ / os.getenv appear only for RTLIB_TIMING_OUTPUT."""
+    for f in _port_files():
+        for node in ast.walk(ast.parse(open(f).read(), f)):
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "environ", "getenv", "environb", "getenvb"):
+                line = open(f).read().splitlines()[node.lineno - 1]
+                assert "RTLIB_TIMING_OUTPUT" in line, (f, line)
+
+
+def test_native_sources_build_outside_the_package():
+    """ace_tpu_torch/native holds C++ sources only (ace_tpu commits its
+    libblock_io.so; the port does not), and the block-IO library builds
+    into the git-ignored build directory of the CUDA kernels."""
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.runtime import block_io
+    pkg = os.path.join(REPO, "ace_tpu_torch")
+    built = [os.path.join(r, n) for r, _, names in os.walk(pkg)
+             for n in names if n.endswith((".so", ".o"))]
+    assert not built, built
+    assert os.listdir(os.path.join(pkg, "native")) == ["block_io.cc"]
+    assert os.path.dirname(block_io.lib_path()) == kernels.build_dir()
+    assert "build/" in open(os.path.join(REPO, ".gitignore")).read().split()
 
 
 def test_entry_points_need_the_card_or_an_explicit_cpu():
