@@ -21,12 +21,12 @@ from ace_tpu_torch.compiler import packing as pk
 from ace_tpu_torch.compiler.scheme_info import SchemeConfig, select_params
 from ace_tpu_torch.runtime.timing import TIMING
 
-# the pre-trained ONNX exports of the ACE reference checkout, which sits
-# beside this repository (read only; absent where the reference is not
-# checked out)
-REFERENCE_MODEL_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))), "reference", "model")
+# where load_model looks for the reference's pre-trained ONNX exports by
+# default: model/ at the root of this repository (the exports are not
+# committed; copy them there or pass model_dir)
+MODEL_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "model")
 
 MODEL_FILES = {
     "resnet20_cifar10": "resnet20_cifar10_pre.onnx",
@@ -41,7 +41,7 @@ CIFAR_MEAN = np.array([0.485, 0.456, 0.406])
 CIFAR_STDEV = np.array([0.229, 0.224, 0.225])
 
 
-def model_path(name: str, model_dir: str = REFERENCE_MODEL_DIR) -> str:
+def model_path(name: str, model_dir: str = MODEL_DIR) -> str:
     return os.path.join(model_dir, MODEL_FILES[name])
 
 
@@ -209,7 +209,7 @@ def _calibrate_to_relu_ranges(g: NNGraph, rng) -> None:
             acts[op.outputs[0]] = acts[op.inputs[0]] @ wt.T
 
 
-def load_model(name: str, model_dir: str = REFERENCE_MODEL_DIR) -> NNGraph:
+def load_model(name: str, model_dir: str = MODEL_DIR) -> NNGraph:
     """resnet110_cifar10 is built natively (build_resnet_cifar(18)); every
     other name loads its ONNX export from model_dir."""
     if name == "resnet110_cifar10":
@@ -217,8 +217,8 @@ def load_model(name: str, model_dir: str = REFERENCE_MODEL_DIR) -> NNGraph:
     path = model_path(name, model_dir)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"model {name!r}: ONNX file {path} not found (the reference's "
-            f"pre-trained exports are not checked out)")
+            f"model {name!r}: ONNX file {path} not found (copy the "
+            f"reference's pre-trained exports there, or pass model_dir)")
     return load_onnx(path)
 
 

@@ -93,7 +93,8 @@ class FheContext:
         Prepare_context — eg_fhertlib_add.inc:15-24, context.c:29-86).
 
         Restores the scheme parameters, opens the weight file if the
-        manifest names one, and pre-warms the rotation-key LRU with the
+        manifest names one (a missing one raises FileNotFoundError, where
+        ace_tpu's skips it), and pre-warms the rotation-key LRU with the
         manifest's rotation inventory (up to the LRU capacity), as
         ace_tpu's does. kw go to the constructor (device, max_rot_keys,
         ...)."""
@@ -104,15 +105,18 @@ class FheContext:
             m = json.load(f)
         s = dict(m["scheme"])
         s["rotate_indices"] = tuple(s.get("rotate_indices", ()))
-        ctx = cls(scheme_info=SchemeInfo(**s), **kw)
-        ctx.manifest = m
         wf = m.get("weights_file")
         if wf:
             if not os.path.isabs(wf):
                 wf = os.path.join(os.path.dirname(os.path.abspath(path)),
                                   wf)
-            if os.path.exists(wf):
-                ctx.open_weight_file(wf)
+            if not os.path.exists(wf):
+                raise FileNotFoundError(f"manifest {path} names the weight "
+                                        f"file {wf}, which does not exist")
+        ctx = cls(scheme_info=SchemeInfo(**s), **kw)
+        ctx.manifest = m
+        if wf:
+            ctx.open_weight_file(wf)
         rots = m.get("rotate_indices", [])
         cap = ctx.keygen.max_rot_keys or len(rots)
         for r in rots[:cap]:

@@ -8,16 +8,17 @@ packed-slot inference, with the runtime timing buckets at the end.
 The default graph is build_resnet_cifar(3), ResNet-20 with seeded weights
 calibrated to the reference's ReLU ranges; --model names a reference
 model instead (resnet110_cifar10 is built natively, the others load the
-reference's ONNX export and fail with the missing file's name where it
-is absent). Images are synthetic, default_rng(0).uniform(-1.5, 1.5),
-unless --cifar gives a CIFAR batch file; the ReLU ranges are calibrated
-against them as run_resnet.py does.
+reference's ONNX export from --model-dir, default model/ in this
+repository, and fail with the missing file's name where it is absent).
+Images are synthetic, default_rng(0).uniform(-1.5, 1.5), unless --cifar
+gives a CIFAR batch file; the ReLU ranges are calibrated against them as
+run_resnet.py does.
 
 Usage:
-  python run_resnet_torch.py [--model NAME] [--layers K] [--images 1]
-      [--device cpu] [--rtt] [--checkpoint PATH] [--json out.json]
-      [--cifar batch.bin] [--hamming-weight 192] [--relu-depth 9]
-      [--relu-range R] [--mul-level L] [--max-rot-keys K]
+  python run_resnet_torch.py [--model NAME] [--model-dir DIR] [--layers K]
+      [--images 1] [--device cpu] [--rtt] [--checkpoint PATH]
+      [--json out.json] [--cifar batch.bin] [--hamming-weight 192]
+      [--relu-depth 9] [--relu-range R] [--mul-level L] [--max-rot-keys K]
 
 --device defaults to the CUDA card and fails without one; --device cpu
 runs the plain PyTorch versions of the kernels (slow at N = 2^15: use
@@ -43,6 +44,9 @@ def main():
     ap.add_argument("--model", default="",
                     help="reference model name (default: the native "
                          "build_resnet_cifar(3) ResNet-20)")
+    ap.add_argument("--model-dir", default="",
+                    help="directory of the reference's ONNX exports "
+                         "(default: model/ in this repository)")
     ap.add_argument("--layers", type=int, default=0,
                     help="truncate the graph to its first K ops (0 = all)")
     ap.add_argument("--images", type=int, default=1)
@@ -83,7 +87,8 @@ def main():
         print(f"# {msg}", file=sys.stderr, flush=True)
 
     name = args.model or "resnet20_cifar10"
-    g = M.load_model(args.model) if args.model else M.build_resnet_cifar(3)
+    g = (M.load_model(args.model, args.model_dir or M.MODEL_DIR)
+         if args.model else M.build_resnet_cifar(3))
     if args.layers:
         g.ops = g.ops[:args.layers]
         g.output_name = g.ops[-1].outputs[0]

@@ -128,6 +128,11 @@ def test_from_manifest_prewarms_the_same_rotations(compiled):
                       ctx.pt_mgr.get("w1", level=2).poly)
     assert tctx.key_memory_bytes() == ctx.key_memory_bytes()
     assert "key memory" in tctx.finalize()
+    data["weights_file"] = "missing.msg"
+    with open(path, "w") as f:
+        json.dump(data, f)
+    with pytest.raises(FileNotFoundError, match="missing.msg"):
+        TFheContext.from_manifest(path, max_rot_keys=4, device="cpu")
 
 
 def test_load_model():
@@ -141,6 +146,8 @@ def test_load_model():
     assert TM.MODEL_FILES == M.MODEL_FILES
     with pytest.raises(FileNotFoundError, match="resnet20_cifar10_pre.onnx"):
         TM.load_model("resnet20_cifar10", model_dir=os.devnull)
+    assert os.path.dirname(TM.model_path("resnet20_cifar10")) == \
+        os.path.join(chip_smoke.REPO, "model")
 
 
 @pytest.mark.parametrize("classes", [10, 100])
@@ -156,3 +163,47 @@ def test_read_cifar_batch(tmp_path, classes):
         assert timgs.shape == imgs.shape == (count or 5, 3, 32, 32)
         np.testing.assert_array_equal(timgs, imgs)
         np.testing.assert_array_equal(tlabels, labels)
+
+
+def _block_graph():
+    """ResNet-20's first residual block at 2 channels on 4x4 (the graph of
+    tests/test_torch_slice.py, float32 weights as an ONNX file holds
+    them): Conv -> ReLU -> Conv -> ReLU -> Conv -> Add(residual)."""
+    rng = np.random.default_rng(59)
+    c, s = 2, (1, 2, 4, 4)
+    w = {"w1": rng.uniform(-0.5, 0.5, (c, 1, 3, 3)),
+         "b1": rng.uniform(-0.1, 0.1, c),
+         "w2": rng.uniform(-0.3, 0.3, (c, c, 3, 3)),
+         "b2": rng.uniform(-0.1, 0.1, c),
+         "w3": rng.uniform(-0.3, 0.3, (c, c, 3, 3)),
+         "b3": rng.uniform(-0.1, 0.1, c)}
+    w = {k: v.astype(np.float32) for k, v in w.items()}
+    conv = {"dilations": [1, 1], "group": 1, "kernel_shape": [3, 3],
+            "pads": [1, 1, 1, 1], "strides": [1, 1]}
+    ops = [NNOp("Conv", "conv1", ["input", "w1", "b1"], ["c1"], conv,
+                (1, 1, 4, 4), s),
+           NNOp("Relu", "relu1", ["c1"], ["r1"], {}, s, s),
+           NNOp("Conv", "conv2", ["r1", "w2", "b2"], ["c2"], conv, s, s),
+           NNOp("Relu", "relu2", ["c2"], ["r2"], {}, s, s),
+           NNOp("Conv", "conv3", ["r2", "w3", "b3"], ["c3"], conv, s, s),
+           NNOp("Add", "add", ["c3", "r1"], ["out"], {}, s, s)]
+    return NNGraph(ops, w, "input", (1, 1, 4, 4), "out")
+
+
+def test_chip_smoke_runtime_services_on_cpu():
+    """chip_smoke.py's phase 7 (compile driver, context from the manifest,
+    validated run with a perturbed input, checkpoint resume) on the CPU at
+    a tiny size. The key LRU holds every key of ops[:6], so no key is
+    made twice and the resume stays bit-exact; on the CPU no kernel
+    counter moves."""
+    g = _block_graph()
+    img = np.random.default_rng(3).uniform(-1, 1, (1, 4, 4))
+    vr_default, vr = TM.calibrate_relu_ranges(g, [img], 4.0, {})
+    res = chip_smoke.phase_runtime_services(
+        g, img, vr_default, vr, device="cpu",
+        ckks_flags="-CKKS:sk_hw=16:q0=50:sf=40:sec=0", prewarm_keys=40,
+        validated_ops=3, expect=(64, 30))
+    assert res["rotations"] > 0 and res["bio_engine"] != "mmap"
+    assert res["checks"] > 3 and res["ckpt_bytes"] > 0
+    assert 0 < res["key_hits"] <= 40
+    assert res["launches"] and not any(res["launches"].values())
