@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero and prints no result line.
+Eight phases; any failure exits non-zero and prints no result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -26,15 +26,23 @@ Seven phases; any failure exits non-zero and prints no result line.
      under the profiler; levels regained, decoded within 2e-2.
   6. all of ResNet-20 (build_resnet_cifar(3), a bootstrap before each of
      its 19 ReLUs) at the parameters select_params picks, through
-     compile_model and infer_encrypted, cold then warm: finite logits,
-     argmax equal to infer_plain's, max_err <= 0.1 * max|plain|. The
-     kernel rows' `launches` count this warm inference.
+     compile_model and infer_encrypted, cold (keys made on demand):
+     finite logits, argmax equal to infer_plain's, max_err <= 0.1 *
+     max|plain|. The kernel rows' `launches` count this inference.
   7. the compile driver and runtime services at ResNet-20's parameters
      (see phase_runtime_services): the driver's manifest and weight file
      from build_resnet_cifar(3) written as ONNX, a context rebuilt from
      them (keys pre-warmed, the weight file through the native loader),
      a validated run (--rtt) that must pass and a perturbed one that
      must raise, and a checkpointed ops[:6] resumed bit-exact.
+  8. one encrypted LLaMA attention block at full head width (see
+     phase_attention): d = 128 (models/llama.py's 4096 over 32 heads),
+     seq = 128, N = 2^15 with 50 q primes; K1-K4 and one rotate and one
+     mul+rescale first checked at this chain's limb counts; then
+     encrypted_attention cold (keys made on demand) against
+     attention_plain within 2e-2, stage by stage, and one projection
+     under the profiler. The kernel rows' `launches_llama` count the
+     block.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -100,6 +108,15 @@ def time_ms(fn, reps: int = 10, batch: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def syncer(device):
+    """A function that waits for `device`: torch.cuda.synchronize for a
+    CUDA device, nothing for the CPU."""
+    import torch
+    if torch.device(device).type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
 
 
 def counters() -> dict:
@@ -336,7 +353,6 @@ def ntt_path_shapes(crt, sets) -> None:
 
 def phase_ops_exact() -> None:
     import torch
-    from ace_tpu_torch import interop
     from ace_tpu_torch.ckks.encoder import Encoder
     from ace_tpu_torch.ckks.evaluator import Evaluator
     from ace_tpu_torch.ckks.keygen import KeyGenerator
@@ -351,7 +367,6 @@ def phase_ops_exact() -> None:
     enc = Encoder(pg)
     ev = Evaluator(pg, kg, enc)
     rot = 1
-    auto_idx, rkey = kg.rot_key(rot)
     rng = np.random.default_rng(SEED + 1)
     m = rng.uniform(-1, 1, DEGREE // 2)
     ct = ev.encrypt(enc.encode(m.astype(np.complex128)))
@@ -362,6 +377,27 @@ def phase_ops_exact() -> None:
     t_gpu = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    cpu_replay(kw, kg, ct, rot, rot_g, mul_g, "[phase 3]")
+    dec = enc.decode(ev.decrypt(rot_g)).real
+    err = float(np.max(np.abs(dec - np.roll(m, -rot))))
+    if not err < 1e-3:
+        raise AssertionError(f"rotate decodes with error {err}")
+    log(f"[phase 3] card {t_gpu:.1f} s (keys + ops), CPU "
+        f"{time.perf_counter() - t0:.1f} s; rotate decodes to "
+        f"roll(m, -1) within {err:.2e}")
+
+
+def cpu_replay(kw, kg, ct, rot, rot_g, mul_g, tag) -> None:
+    """rotate(ct, rot) and rescale(mul(ct, ct)) again on the CPU (plain
+    versions), with kg's secret, relinearization and rotation keys and ct
+    copied from the device; each must equal the device's result (rot_g,
+    mul_g) residue for residue."""
+    from ace_tpu_torch import interop
+    from ace_tpu_torch.ckks.encoder import Encoder
+    from ace_tpu_torch.ckks.evaluator import Evaluator
+    from ace_tpu_torch.ckks.params import CkksParams
+
+    auto_idx, rkey = kg.rot_key(rot)
     pc = CkksParams(**kw, device="cpu")
     npk = interop.to_numpy
     ckg = interop.keygen(
@@ -379,15 +415,8 @@ def phase_ops_exact() -> None:
             a, b = npk(getattr(g, part)), npk(getattr(c, part))
             if a.shape != b.shape or (a != b).any():
                 raise AssertionError(f"{what}.{part}: card and CPU differ")
-        log(f"[phase 3] {what} at level {ct.level}: card == CPU, "
+        log(f"{tag} {what} at level {ct.level}: card == CPU, "
             f"residue for residue")
-    dec = enc.decode(ev.decrypt(rot_g)).real
-    err = float(np.max(np.abs(dec - np.roll(m, -rot))))
-    if not err < 1e-3:
-        raise AssertionError(f"rotate decodes with error {err}")
-    log(f"[phase 3] card {t_gpu:.1f} s (keys + ops), CPU "
-        f"{time.perf_counter() - t0:.1f} s; rotate decodes to "
-        f"roll(m, -1) within {err:.2e}")
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +507,12 @@ def phase_slice() -> dict:
             "max_err": errs[0], "max_plain": scale}
 
 
-def profile_inference(run, unprofiled_s: float, tag: str = "[phase 4]"):
+def profile_inference(run, unprofiled_s: float, tag: str = "[phase 4]",
+                      device="cuda"):
     """One more warm run under torch.profiler: kernel time by name and
-    the device's busy share. The profiler slows the host, so the busy
+    the device's busy share. The profiler records the device's activity
+    only (no CPU op events, which a run of a million launches takes
+    minutes to stop and read) and still slows the host, so the busy
     share is given both over the profiled wall time (the idle share of
     that run) and over `unprofiled_s`, the wall time of an unprofiled
     warm run (a rough figure for a real one). The run always happens,
@@ -491,42 +523,49 @@ def profile_inference(run, unprofiled_s: float, tag: str = "[phase 4]"):
     import torch
     stack = contextlib.ExitStack()
     prof = None
+    on_card = torch.device(device).type == "cuda"
     try:
         from torch.profiler import ProfilerActivity, profile
-        prof = stack.enter_context(profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        prof = stack.enter_context(profile(activities=[
+            ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]))
     except Exception as exc:  # noqa: BLE001 — the profiler alone
         log(f"{tag} profiler did not start, not measured: {exc!r}")
     with stack:
         t0 = time.perf_counter()
         out = run()
-        torch.cuda.synchronize()
+        syncer(device)()
         wall = time.perf_counter() - t0
+    t_stop = time.perf_counter() - t0 - wall
     if prof is None:
         return out
     try:
+        import collections
         from torch.autograd import DeviceType
-
-        def dev_us(e):
-            return (getattr(e, "self_device_time_total", 0)
-                    or getattr(e, "self_cuda_time_total", 0) or 0)
-        # kernels only: an aten op's entry repeats its kernels' time
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        t0 = time.perf_counter()
+        # device events straight from the profiler's raw (kineto) events:
+        # key_averages() would first build a Python tree over every
+        # runtime call, minutes for a run of a million launches
+        dev_ns, calls = collections.Counter(), collections.Counter()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                dev_ns[e.name()] += e.duration_ns()
+                calls[e.name()] += 1
+        t_read = time.perf_counter() - t0
     except Exception as exc:  # noqa: BLE001 — the profiler's report alone
         log(f"{tag} profile unreadable, not measured: {exc!r}")
         return out
-    if not events:
+    if not dev_ns:
         log(f"{tag} profile: no device time recorded (not measured)")
         return out
-    busy = sum(dev_us(e) for e in events) / 1e6
+    busy = sum(dev_ns.values()) / 1e9
     log(f"{tag} profiled warm run {wall:.2f} s wall, kernels busy "
         f"{busy:.2f} s: idle {100 * (1 - busy / wall):.0f}% of the profiled "
         f"run; busy {100 * busy / unprofiled_s:.0f}% of the unprofiled "
-        f"warm run's {unprofiled_s:.2f} s (rough)")
-    for e in sorted(events, key=dev_us, reverse=True)[:15]:
-        log(f"{tag}   {dev_us(e) / 1e3:10.2f} ms {e.count:7d}x  "
-            f"{e.key[:90]}")
+        f"warm run's {unprofiled_s:.2f} s (rough); profiler stopped in "
+        f"{t_stop:.1f} s, {sum(calls.values())} device events read in "
+        f"{t_read:.1f} s")
+    for name, ns in dev_ns.most_common(15):
+        log(f"{tag}   {ns / 1e6:10.2f} ms {calls[name]:7d}x  {name[:90]}")
     return out
 
 
@@ -609,9 +648,10 @@ def phase_resnet20() -> dict:
     picks with use_bootstrap=True (no forced mul_level; the input at
     scheme.input_level), through compile_model and infer_encrypted on
     phase 4's image and calibration: one cold inference (keys made on
-    demand), then one warm. Gate: finite logits of shape (10,), argmax
-    equal to infer_plain's, max_err <= 0.1 * max|plain|, 19 bootstraps
-    a run, every kernel's counter growing in the warm run."""
+    demand; the warm rerun of earlier versions was cut to keep the script
+    within its time limit once phase 8 came). Gate: finite logits of
+    shape (10,), argmax equal to infer_plain's, max_err <= 0.1 *
+    max|plain|, 19 bootstraps, every kernel's counter growing."""
     import torch
     from ace_tpu_torch.compiler.relu_ranges import ranges_for
     from ace_tpu_torch.compiler.scheme_info import SchemeConfig
@@ -640,59 +680,49 @@ def phase_resnet20() -> dict:
         f"{crt.num_p} P primes, {model.ctx.params.num_q_parts} digits; "
         f"context {t_ctx:.1f} s")
 
-    def infer(trace):
-        model.runner.trace = trace
-        TIMING.reset()
-        t0 = time.perf_counter()
-        out = M.infer_encrypted(model, img)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    out_cold, t_cold = infer(log)
-    n_bts = [TIMING.count("RTM_BOOTSTRAP")]
+    model.runner.trace = log
+    TIMING.reset()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = M.infer_encrypted(model, img)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_counters()
+    limbs = read_limbs()
+    n_bts = TIMING.count("RTM_BOOTSTRAP")
     t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
     n_keys = TIMING.count("RTM_ROT_KEY_REGEN")
     log(f"[phase 6] cold inference {t_cold:.1f} s, of which {n_keys} "
         f"rotation keys {t_keys:.1f} s and bootstrap tables "
-        f"{TIMING.seconds('RTM_BS_SETUP'):.1f} s")
-    log(TIMING.report())
-    reset_counters()
-    out_warm, t_warm = infer(None)
-    launches = read_counters()
-    limbs = read_limbs()
-    n_bts.append(TIMING.count("RTM_BOOTSTRAP"))
-    log(f"[phase 6] warm inference {t_warm:.1f} s; launches {launches}; "
+        f"{TIMING.seconds('RTM_BS_SETUP'):.1f} s; launches {launches}; "
         f"NTT limbs {limbs}")
     log(TIMING.report())
     peak = torch.cuda.max_memory_allocated() / 2**30
     plain = M.infer_plain(g, img, n_slots=DEGREE // 2)[:10]
     scale = float(np.max(np.abs(plain)))
-    errs = [float(np.max(np.abs(o - plain))) for o in (out_cold, out_warm)]
-    agree = [int(np.argmax(o)) == int(np.argmax(plain))
-             for o in (out_cold, out_warm)]
-    log(f"[phase 6] logits (warm) {np.array2string(out_warm, precision=4)}")
-    log(f"[phase 6] plain         {np.array2string(plain, precision=4)}")
-    log(f"[phase 6] max_err {errs[0]:.4e} cold, {errs[1]:.4e} warm; "
-        f"max|plain| {scale:.4f}, limit 0.1 * max|plain| = "
-        f"{0.1 * scale:.4e}; argmax agrees {agree}; bootstraps {n_bts}; "
-        f"{len(model.ctx.keygen._rot_keys)} rotation keys held; peak "
-        f"device memory {peak:.2f} GiB")
-    if not all(np.all(np.isfinite(o)) and o.shape == (10,)
-               for o in (out_cold, out_warm)):
+    err = float(np.max(np.abs(out - plain)))
+    agree = int(np.argmax(out)) == int(np.argmax(plain))
+    log(f"[phase 6] logits {np.array2string(out, precision=4)}")
+    log(f"[phase 6] plain  {np.array2string(plain, precision=4)}")
+    log(f"[phase 6] max_err {err:.4e}; max|plain| {scale:.4f}, limit 0.1 * "
+        f"max|plain| = {0.1 * scale:.4e}; argmax agrees {agree}; "
+        f"bootstraps {n_bts}; {len(model.ctx.keygen._rot_keys)} rotation "
+        f"keys held; peak device memory {peak:.2f} GiB")
+    if not (np.all(np.isfinite(out)) and out.shape == (10,)):
         raise AssertionError("logits are not finite or have the wrong shape")
-    if not all(agree):
-        raise AssertionError(f"argmax disagrees with infer_plain: {agree}")
-    if not max(errs) <= 0.1 * scale:
-        raise AssertionError(f"max_err {max(errs)} > 0.1 * {scale}")
-    if n_bts != [RESNET20_BOOTSTRAPS] * 2:
+    if not agree:
+        raise AssertionError("argmax disagrees with infer_plain")
+    if not err <= 0.1 * scale:
+        raise AssertionError(f"max_err {err} > 0.1 * {scale}")
+    if n_bts != RESNET20_BOOTSTRAPS:
         raise AssertionError(f"bootstraps per inference {n_bts}, expected "
                              f"{RESNET20_BOOTSTRAPS}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched in ResNet-20: {idle}")
-    return {"launches": launches, "cold_s": t_cold, "warm_s": t_warm,
-            "rot_keygen_s": t_keys, "keys": n_keys, "max_err": max(errs),
-            "max_plain": scale, "peak_gib": peak}
+    return {"launches": launches, "cold_s": t_cold, "rot_keygen_s": t_keys,
+            "keys": n_keys, "max_err": err, "max_plain": scale,
+            "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -804,10 +834,7 @@ def phase_runtime_services(g, img, vr_default: float, vr: dict,
     from ace_tpu_torch.runtime.timing import TIMING
     from ace_tpu_torch.runtime.validate import Shadow, ValidationError
 
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
+    sync = syncer(device)
     TIMING.enabled = True
     tag = "[phase 7]"
     res = {}
@@ -1003,6 +1030,279 @@ def phase_runtime_services(g, img, vr_default: float, vr: dict,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: one encrypted LLaMA attention block at full head width
+# ---------------------------------------------------------------------------
+
+# One head of models/llama.py's block (EMBED 4096 over 32 heads: d = 128),
+# seq * d = N/2 at N = 2^15, on tests/test_llama_fhe.py's chain.
+ATTN_SEQ, ATTN_D, ATTN_NUM_Q = 128, 128, 50
+ATTN_TOL = 2e-2  # tests/test_llama_fhe.py's bound
+
+
+def attention_data(seq: int, d: int, seed: int = SEED):
+    """Weights, input and certified data ranges for one attention block,
+    drawn as tests/test_llama_fhe.py draws them, from default_rng(seed).
+    The projections are scaled by sqrt(8 / d) so that q.k/sqrt(d) spreads
+    as at that test's D = 8. The ranges come from the plain shadow, as
+    that test certifies them (the relu_vr analog)."""
+    rng = np.random.default_rng(seed)
+    s = 0.35 * np.sqrt(8 / d)
+    w = {"rms_weight": rng.uniform(0.6, 1.4, d),
+         "wq": rng.standard_normal((d, d)) * s,
+         "wk": rng.standard_normal((d, d)) * s,
+         "wv": rng.standard_normal((d, d)) * s}
+    x = rng.standard_normal((seq, d)) * 0.8
+    ms = np.mean(x * x, axis=-1) + 1e-5
+    y = x / np.sqrt(ms)[:, None] * np.asarray(w["rms_weight"])
+    q = y @ w["wq"].T
+    k = y @ w["wk"].T
+    smax = float(np.max(np.abs(q @ k.T)) / np.sqrt(d) * 1.3 + 0.5)
+    den = np.exp((q @ k.T) / np.sqrt(d)).sum(-1)
+    ranges = dict(ms_range=(float(ms.min()) * 0.7, float(ms.max()) * 1.4),
+                  score_bound=smax,
+                  den_range=(float(den.min()) * 0.7, float(den.max()) * 1.4))
+    return w, x, ranges
+
+
+def kernels_exact_at(crt, rows, what: str, tag: str) -> None:
+    """K1-K4 through their wrappers on random residues over the limbs
+    `rows` of crt, each equal word for word to its plain version on the
+    same tensors, and K4(K3(x)) == x."""
+    import torch
+    from ace_tpu_torch.ops import modops, ntt, ntt4, pallas_modops as pm
+    n, L = crt.degree, len(rows)
+    primes = [crt.all_primes[r] for r in rows]
+    rng = np.random.default_rng(SEED + L)
+    a, b = (modops.to_torch(np.stack([
+        rng.integers(0, p, n, dtype=np.uint64) for p in primes]), crt.device)
+        for _ in range(2))
+    q, mu_hi, mu_lo = crt.mod_arrays(rows)
+    ws = [int(rng.integers(1, p)) for p in primes]
+    w = crt.column(ws)
+    wp = crt.column([modops.precompute_shoup(v, p)
+                     for v, p in zip(ws, primes)])
+    t = crt.tables_for(rows)
+    for key, got, want in (
+            ("K1", pm.barrett_mul(a, b, q, mu_hi, mu_lo),
+             pm.barrett_mul_plain(a, b, q, mu_hi, mu_lo)),
+            ("K2", pm.shoup_mul(a, w, wp, q), pm.shoup_mul_plain(a, w, wp, q)),
+            ("K3", ntt4.ntt4_fwd(a, t), ntt.ntt_fwd_plain(a, t)),
+            ("K4", ntt4.ntt4_inv(a, t), ntt.ntt_inv_plain(a, t))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key} at L = {L} ({what}) differs from "
+                                 f"the plain version")
+    if not torch.equal(ntt4.ntt4_inv(ntt4.ntt4_fwd(a, t), t), a):
+        raise AssertionError(f"K4(K3(x)) != x at L = {L}")
+    log(f"{tag} [{L}, {n}] ({what}): K1-K4 equal to their plain versions, "
+        f"K4(K3(x)) == x")
+
+
+class _BlockProbe:
+    """Counts and stage marks for one encrypted_attention call, taken
+    without changing the port's code: the evaluator's rotate and
+    mul_plain and the encoder's encode (called by encode_cached on a miss
+    only) are counted on the instances, and the llama_fhe helpers and
+    nonlinear functions that open and close the block's stages are
+    wrapped for the duration of the `with` block to record a mark (wall
+    clock with the device synchronized, the rotation keys made so far,
+    the counts) on entry and exit."""
+
+    STAGES = (("rmsnorm", "start", "_matmul_plain_w#1<"),
+              ("projections", "_matmul_plain_w#1<", "_matmul_plain_w#3>"),
+              ("rope", "_matmul_plain_w#3>", "_rope#2>"),
+              ("scores", "_rope#2>", "exp#1<"),
+              ("softmax", "exp#1<", "reciprocal#1>"),
+              ("output", "reciprocal#1>", "end"))
+
+    def __init__(self, ev, enc, sync):
+        self.counts = {"rotate": 0, "mul_plain": 0, "encode": 0}
+        self.marks = {}
+        self.first_projection = None  # (input, output) of the q projection
+        self._sync = sync
+        for obj, name in ((ev, "rotate"), (ev, "mul_plain"),
+                          (enc, "encode")):
+            setattr(obj, name, self._counted(getattr(obj, name), name))
+
+    def _counted(self, f, name):
+        def g(*a, **k):
+            self.counts[name] += 1
+            return f(*a, **k)
+        return g
+
+    def mark(self, label: str) -> None:
+        from ace_tpu_torch.runtime.timing import TIMING
+        self._sync()
+        self.marks[label] = dict(
+            t=time.perf_counter(),
+            keys=TIMING.count("RTM_ROT_KEY_REGEN"),
+            keys_s=TIMING.seconds("RTM_ROT_KEY_REGEN"), **self.counts)
+
+    def __enter__(self):
+        from ace_tpu_torch.ckks import nonlinear as NL
+        from ace_tpu_torch.models import llama_fhe as LF
+        self._saved = []
+        calls = {}
+        for mod, name in ((LF, "_matmul_plain_w"), (LF, "_rope"),
+                          (NL, "exp"), (NL, "reciprocal")):
+            f = getattr(mod, name)
+            self._saved.append((mod, name, f))
+
+            def g(*a, _f=f, _name=name, **k):
+                calls[_name] = i = calls.get(_name, 0) + 1
+                self.mark(f"{_name}#{i}<")
+                out = _f(*a, **k)
+                self.mark(f"{_name}#{i}>")
+                if _name == "_matmul_plain_w" and i == 1:
+                    self.first_projection = (a[2], out)
+                return out
+            setattr(mod, name, g)
+        self.mark("start")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, f in self._saved:
+            setattr(mod, name, f)
+        if exc[0] is None:
+            self.mark("end")
+
+    def stages(self) -> list:
+        """(stage, seconds, keys made, key seconds, rotations, mul_plain,
+        encodes) per stage."""
+        out = []
+        for stage, a, b in self.STAGES:
+            m0, m1 = self.marks[a], self.marks[b]
+            out.append((stage, m1["t"] - m0["t"], m1["keys"] - m0["keys"],
+                        m1["keys_s"] - m0["keys_s"],
+                        m1["rotate"] - m0["rotate"],
+                        m1["mul_plain"] - m0["mul_plain"],
+                        m1["encode"] - m0["encode"]))
+        return out
+
+
+def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
+                    num_q: int = ATTN_NUM_Q) -> dict:
+    """One head of the LLaMA attention block encrypted through the port's
+    models/llama_fhe.encrypted_attention, at CkksParams(degree=2*seq*d,
+    num_q, 60, 50), the chain tests/test_llama_fhe.py uses:
+      a. K1-K4 equal to their plain versions at this chain's shapes, the
+         extended basis [num_q + num_p, N] and the q chain [num_q, N]; one
+         rotate and one mul+rescale at the top level equal on the device
+         and on the CPU;
+      b. the block cold (every rotation key made on demand, the LRU
+         unbounded) on attention_data's input, stage by stage; decoded
+         within ATTN_TOL of attention_plain, finite;
+      c. the block's q projection again on its own input, keys held,
+         under torch.profiler; it must equal the block's residue for
+         residue.
+    Returns the kernels' launches during b with the block's metrics;
+    main() fails unless every kernel launched. device=None is the card;
+    tests/test_torch_llama.py runs this phase on the CPU at seq = 4,
+    d = 8."""
+    import gc
+    import torch
+    from ace_tpu_torch import resolve_device
+    from ace_tpu_torch.ckks.encoder import Encoder
+    from ace_tpu_torch.ckks.evaluator import Evaluator
+    from ace_tpu_torch.ckks.keygen import KeyGenerator
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.models import llama_fhe as LF
+    from ace_tpu_torch.runtime.timing import TIMING
+
+    dev = resolve_device(device)
+    sync = syncer(dev)
+    on_card = dev.type == "cuda"
+    tag = "[phase 8]"
+    TIMING.enabled = True
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res = {}
+
+    # a. the kernels and two ops at this chain's shapes
+    kw = dict(degree=2 * seq * d, num_q=num_q, first_mod_size=60,
+              scaling_mod_size=50)
+    t0 = time.perf_counter()
+    params = CkksParams(**kw, device=dev)
+    crt = params.crt
+    # keys from 256 bits of os.urandom (Blake2Csprng's default seed)
+    kg = KeyGenerator(params, max_rot_keys=0)
+    enc = Encoder(params)
+    ev = Evaluator(params, kg, enc)
+    sync()
+    t_ctx = time.perf_counter() - t0
+    log(f"{tag} N = {params.degree}, seq = {seq}, d = {d}: {crt.num_q} q "
+        f"primes + {crt.num_p} P primes, {params.num_q_parts} digits; "
+        f"context and keys {t_ctx:.1f} s")
+    kernels_exact_at(crt, range(crt.num_q + crt.num_p), "the extended basis",
+                     tag)
+    kernels_exact_at(crt, range(crt.num_q), "the q chain", tag)
+    w, x, ranges = attention_data(seq, d)
+    ct = ev.encrypt(enc.encode(x.reshape(-1).astype(np.complex128)))
+    t0 = time.perf_counter()
+    cpu_replay(kw, kg, ct, 1, ev.rotate(ct, 1), ev.rescale(ev.mul(ct, ct)),
+               tag)
+    log(f"{tag} card and CPU replay {time.perf_counter() - t0:.1f} s")
+
+    # b. the block, cold
+    TIMING.reset()
+    reset_counters()
+    keys0 = len(kg._rot_keys)
+    with _BlockProbe(ev, enc, sync) as probe:
+        out = LF.encrypted_attention(ev, enc, ct, w, seq, d, **ranges)
+    launches = read_counters()
+    marks = probe.marks
+    res.update(block_s=marks["end"]["t"] - marks["start"]["t"],
+               keys=len(kg._rot_keys) - keys0,
+               keys_s=TIMING.seconds("RTM_ROT_KEY_REGEN"),
+               rotations=probe.counts["rotate"],
+               mul_plain=probe.counts["mul_plain"],
+               encodes=probe.counts["encode"], level_in=ct.level,
+               level_out=out.level, launches=launches, limbs=read_limbs())
+    got = enc.decode(ev.decrypt(out)).real[:seq * d].reshape(seq, d)
+    want = LF.attention_plain(x, w, seq, d)
+    res["max_err"] = float(np.max(np.abs(got - want)))
+    res["max_plain"] = float(np.max(np.abs(want)))
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if on_card else None)
+    log(f"{tag} ranges certified from the plain shadow: " + ", ".join(
+        f"{k} {v!r}" for k, v in ranges.items()))
+    log(f"{tag} block cold {res['block_s']:.2f} s: {res['keys']} rotation "
+        f"keys in {res['keys_s']:.2f} s; {res['rotations']} rotations, "
+        f"{res['mul_plain']} mul_plain, {res['encodes']} encode_cached "
+        f"misses; level {ct.level} -> {out.level} ({ct.level - out.level} "
+        f"levels); launches {launches}; NTT limbs {res['limbs']}")
+    for st, sec, nk, ks, nr, nm, ne in probe.stages():
+        log(f"{tag}   {st:12s} {sec:8.2f} s: {nk:4d} keys {ks:7.2f} s, "
+            f"{nr:5d} rotations, {nm:5d} mul_plain, {ne:5d} encodes")
+    log(TIMING.report())
+    log(f"{tag} max_err {res['max_err']:.4e} of max|plain| "
+        f"{res['max_plain']:.4f} (limit {ATTN_TOL}); peak device memory "
+        + (f"{res['peak_gib']:.2f} GiB" if on_card else "not measured (CPU)"))
+    if not (np.all(np.isfinite(got)) and got.shape == (seq, d)):
+        raise AssertionError("attention output is not finite")
+    if not res["max_err"] < ATTN_TOL:
+        raise AssertionError(f"attention max_err {res['max_err']} >= "
+                             f"{ATTN_TOL}")
+
+    # c. the q projection again, keys held, under the profiler; its
+    # unprofiled time is the block's, per projection, keys excluded
+    y, q = probe.first_projection
+    proj = dict((st[0], st) for st in probe.stages())["projections"]
+    res["projection_s"] = (proj[1] - proj[3]) / 3
+    log(f"{tag} one projection at level {y.level}: {res['projection_s']:.2f}"
+        f" s in the block, keys excluded ({2 * d - 2} rotations)")
+    wq = np.asarray(w["wq"])
+    p = profile_inference(lambda: LF._matmul_plain_w(ev, enc, y, wq, seq, d),
+                          res["projection_s"], tag, dev)
+    if not all(torch.equal(getattr(p, c).data, getattr(q, c).data)
+               for c in ("c0", "c1")):
+        raise AssertionError("the profiled projection differs from the "
+                             "block's")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1036,7 +1336,7 @@ def main() -> int:
             r["launches"] = full["launches"][r["name"].split()[0]]
         log(f"[summary] ResNet-20: cold {full['cold_s']:.1f} s ("
             f"{full['keys']} rotation keys {full['rot_keygen_s']:.1f} s), "
-            f"warm {full['warm_s']:.1f} s, max_err {full['max_err']:.3e} "
+            f"max_err {full['max_err']:.3e} "
             f"of max|plain| {full['max_plain']:.3f}, peak "
             f"{full['peak_gib']:.2f} GiB; total "
             f"{time.perf_counter() - t_start:.1f} s on {dev['card']}")
@@ -1061,6 +1361,23 @@ def main() -> int:
             f"bytes (save {svc['ckpt_save_s']:.3f} s, load "
             f"{svc['ckpt_load_s']:.3f} s), loader {svc['bio_engine']}; "
             f"script {time.perf_counter() - t_start:.1f} s")
+        t0 = time.perf_counter()
+        att = phase_attention()
+        idle = [k for k, v in att["launches"].items() if v == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched in the attention "
+                                 f"block: {idle}")
+        for r in rows:
+            r["launches_llama"] = att["launches"][r["name"].split()[0]]
+        log(f"[summary] attention block (seq {ATTN_SEQ}, d {ATTN_D}, "
+            f"{ATTN_NUM_Q} q primes): cold {att['block_s']:.1f} s ("
+            f"{att['keys']} rotation keys {att['keys_s']:.1f} s), "
+            f"{att['rotations']} rotations, level {att['level_in']} -> "
+            f"{att['level_out']}, max_err {att['max_err']:.3e} of max|plain| "
+            f"{att['max_plain']:.3f}, peak {att['peak_gib']:.2f} GiB; one "
+            f"projection {att['projection_s']:.2f} s; phase "
+            f"{time.perf_counter() - t0:.1f} s; script "
+            f"{time.perf_counter() - t_start:.1f} s")
         print(dev["card"])
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

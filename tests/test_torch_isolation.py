@@ -48,7 +48,8 @@ def test_import_leaves_jax_unloaded():
             "ace_tpu_torch.ops.kernels, ace_tpu_torch.driver, "
             "ace_tpu_torch.utils.options, ace_tpu_torch.runtime.validate, "
             "ace_tpu_torch.runtime.ckpt, ace_tpu_torch.runtime.rt_data, "
-            "ace_tpu_torch.runtime.block_io; "
+            "ace_tpu_torch.runtime.block_io, ace_tpu_torch.ckks.nonlinear, "
+            "ace_tpu_torch.models.llama, ace_tpu_torch.models.llama_fhe; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'ace_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
