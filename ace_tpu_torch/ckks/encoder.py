@@ -278,6 +278,35 @@ class Encoder:
             self._msg_cache_bytes -= int(old.numel()) * 8
         return msg
 
+    def encode_value(self, value: float, level: int,
+                     sf_degree: int = 1) -> Plaintext:
+        """Encode a broadcast scalar (Encode_val_at_level). Cached —
+        constants like the Chebyshev coefficients recur at every level."""
+        key = (float(value), level, sf_degree)
+        cached = self._value_cache.get(key)
+        if cached is None:
+            slots = self.params.degree // 2
+            cached = self.encode(np.full(slots, value, np.complex128),
+                                 level, slots, sf_degree)
+            self._value_cache[key] = cached
+        return cached
+
+    def encode_value_with_scale(self, value: float, level: int,
+                                scale: float) -> Plaintext:
+        """Encode scalar at an explicit scale (Encode_val_at_level_with_scale
+        -> Encode_impl_with_scale). Used by upscale: coefficients are
+        llround(x*scale + 0.5) without the Delta^k structure."""
+        crt = self.params.crt
+        n = self.params.degree
+        slots = n // 2
+        values = np.full(slots, value, np.complex128)
+        to_scale = self.embedding_inv(values)
+        message = _llround_interleave(to_scale, scale, n, slots, 1)
+        data = _signed_to_rns(message, crt.q_primes[:level])
+        p = P.to_ntt(RnsPoly(modops.to_torch(data, self.device), level, 0,
+                             False), crt)
+        return Plaintext(p, scale, 1, slots)
+
     def decode(self, plain: Plaintext, length: int = 0) -> np.ndarray:
         """Exact CRT reconstruction + embedding (ckks_encoder.c:649-703).
 

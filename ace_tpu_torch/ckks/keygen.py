@@ -52,6 +52,12 @@ class SwitchKey:
     b: list
     a: list
 
+    @property
+    def nbytes(self) -> int:
+        """Actual device bytes held by this key (all digit pairs)."""
+        return sum(p.data.numel() * p.data.element_size()
+                   for pair in (self.b, self.a) for p in pair)
+
 
 def switch_key_nbytes(params: CkksParams) -> int:
     """Bytes of one hybrid switching key at these parameters, derived

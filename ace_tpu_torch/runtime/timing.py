@@ -80,14 +80,21 @@ class RtTiming:
     def count(self, name: str) -> int:
         return self._count.get(name, 0)
 
-    def report(self) -> str:
-        """RTLIB_TM_REPORT analog; returns the formatted table."""
+    def snapshot(self) -> dict:
+        """{name: (count, seconds)} of every counter so far."""
+        return {n: (self._count[n], self._acc[n]) for n in self._acc}
+
+    def report(self, counters: dict | None = None) -> str:
+        """RTLIB_TM_REPORT analog; returns the formatted table of every
+        counter so far, or of `counters` ({name: (count, seconds)}, as
+        snapshot() gives them)."""
+        counters = self.snapshot() if counters is None else counters
         lines = ["[RT_TIMING] name count total_sec"]
-        for name in sorted(self._acc, key=lambda n: -self._acc[n]):
+        for name in sorted(counters, key=lambda n: -counters[n][1]):
             lvl = RTM_LEVELS.get(name, 1)
+            count, secs = counters[name]
             lines.append("[RT_TIMING] %s%-24s %6d %12.6f"
-                         % ("  " * lvl, name, self._count[name],
-                            self._acc[name]))
+                         % ("  " * lvl, name, count, secs))
         return "\n".join(lines)
 
 

@@ -25,8 +25,10 @@ Eight phases; any failure exits non-zero and prints no result line.
      slots at level 2, through FheContext.bootstrap cold, warm and warm
      under the profiler; levels regained, decoded within 2e-2.
   6. all of ResNet-20 (build_resnet_cifar(3), a bootstrap before each of
-     its 19 ReLUs) at the parameters select_params picks, through
-     compile_model and infer_encrypted, cold (keys made on demand):
+     its 19 ReLUs) at the parameters select_params picks, through the
+     model zoo's path (scripts/torch_zoo.py: cfg_for, shared_context and
+     run_model, i.e. compile_model and infer_encrypted), cold (keys made
+     on demand):
      finite logits, argmax equal to infer_plain's, max_err <= 0.1 *
      max|plain|. The kernel rows' `launches` count this inference.
   7. the compile driver and runtime services at ResNet-20's parameters
@@ -119,26 +121,24 @@ def syncer(device):
     return lambda: None
 
 
-def counters() -> dict:
-    from ace_tpu_torch.ops import ntt4, pallas_modops as pm
-    return {"K1": pm.barrett_mul, "K2": pm.shoup_mul, "K3": ntt4.ntt4_fwd,
-            "K4": ntt4.ntt4_inv}
-
-
 def reset_counters() -> None:
-    for w in counters().values():
+    from ace_tpu_torch.ops import kernel_wrappers
+    for w in kernel_wrappers().values():
         w.launches = 0
         if hasattr(w, "limbs"):
             w.limbs = 0
 
 
 def read_counters() -> dict:
-    return {k: w.launches for k, w in counters().items()}
+    from ace_tpu_torch.ops import kernel_wrappers
+    return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
 def read_limbs() -> dict:
     """Limbs transformed by the NTT kernels' launches."""
-    return {k: w.limbs for k, w in counters().items() if hasattr(w, "limbs")}
+    from ace_tpu_torch.ops import kernel_wrappers
+    return {k: w.limbs for k, w in kernel_wrappers().items()
+            if hasattr(w, "limbs")}
 
 
 # ---------------------------------------------------------------------------
@@ -643,86 +643,87 @@ def phase_bootstrap() -> dict:
 RESNET20_BOOTSTRAPS = 19  # one before each of its 19 ReLUs
 
 
-def phase_resnet20() -> dict:
-    """build_resnet_cifar(3), every op, at the parameters select_params
-    picks with use_bootstrap=True (no forced mul_level; the input at
-    scheme.input_level), through compile_model and infer_encrypted on
-    phase 4's image and calibration: one cold inference (keys made on
-    demand; the warm rerun of earlier versions was cut to keep the script
-    within its time limit once phase 8 came). Gate: finite logits of
-    shape (10,), argmax equal to infer_plain's, max_err <= 0.1 *
-    max|plain|, 19 bootstraps, every kernel's counter growing."""
+def phase_resnet20(device=None, graph=None, img=None,
+                   name: str = "resnet20_cifar10",
+                   bootstraps: int = RESNET20_BOOTSTRAPS,
+                   **scheme) -> dict:
+    """build_resnet_cifar(3), every op, through the model zoo's path
+    (scripts/torch_zoo.py): cfg_for on phase 4's image (the tuned ranges
+    of resnet20_cifar10 calibrated on it, relu depth 9), select_params
+    with use_bootstrap=True (no forced mul_level; the input at
+    scheme.input_level), shared_context (the key LRU sized from the
+    byte budget) and run_model (compile_model, then measured_infer,
+    which sets the kernel counters to 0 just before infer_encrypted and
+    reads them, the keys and the timing buckets just after): one cold
+    inference (keys made on demand; the warm rerun of earlier versions
+    was cut to keep the script within its time limit once phase 8
+    came). Gates (torch_zoo.gate_failures on the zoo's row): finite
+    logits of shape (classes,), max_err <= 0.1 * max|plain|,
+    `bootstraps` bootstraps; and argmax equal to infer_plain's. main()
+    holds the launch gate. device, graph, img, name, bootstraps and
+    `scheme` (cfg_for's scheme sizes) let the CPU run it at a tiny
+    size."""
     import torch
-    from ace_tpu_torch.compiler.relu_ranges import ranges_for
-    from ace_tpu_torch.compiler.scheme_info import SchemeConfig
+    from ace_tpu_torch.compiler.scheme_info import select_params
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.runtime.timing import TIMING
+    from ace_tpu_torch.utils.scripts import load_script
 
+    zoo = load_script("torch_zoo")
+    gpu = device is None or torch.device(device).type == "cuda"
     TIMING.enabled = True
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    g = M.build_resnet_cifar(3)
-    img = np.random.default_rng(0).uniform(-1.5, 1.5, (1, 3, 32, 32))[0]
-    vr_default, vr = ranges_for("resnet20_cifar10")
-    vr_default, vr = M.calibrate_relu_ranges(g, [img], vr_default, vr)
-    cfg = SchemeConfig(security_level=0, hamming_weight=192,
-                       first_mod_size=60, scaling_mod_size=56,
-                       relu_mul_depth=9, relu_value_range=vr_default,
-                       relu_ranges=vr, use_bootstrap=True)
+    if gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    g = graph if graph is not None else M.build_resnet_cifar(3)
+    if img is None:
+        img = np.random.default_rng(0).uniform(-1.5, 1.5,
+                                               (1, 3, 32, 32))[0]
+    classes = zoo.classes_of(name)
     t0 = time.perf_counter()
-    model = M.compile_model(g, cfg, trace=log)
-    torch.cuda.synchronize()
+    cfg = zoo.cfg_for(name, g, [img], relu_depth=9, **scheme)
+    si = select_params(g, cfg)
+    _, ctx = zoo.shared_context({name: si}, device=device)
+    syncer(device or "cuda")()
     t_ctx = time.perf_counter() - t0
-    si, crt = model.scheme, model.ctx.params.crt
+    crt = ctx.params.crt
     log(f"[phase 6] {len(g.ops)} ops; select_params: N={si.poly_degree} "
         f"mul_level={si.mul_level} input_level={si.input_level} "
         f"bootstrap_depth={si.bootstrap_depth}; {crt.num_q} q + "
-        f"{crt.num_p} P primes, {model.ctx.params.num_q_parts} digits; "
+        f"{crt.num_p} P primes, {ctx.params.num_q_parts} digits; "
         f"context {t_ctx:.1f} s")
 
-    model.runner.trace = log
-    TIMING.reset()
-    reset_counters()
-    t0 = time.perf_counter()
-    out = M.infer_encrypted(model, img)
-    torch.cuda.synchronize()
-    t_cold = time.perf_counter() - t0
-    launches = read_counters()
-    limbs = read_limbs()
-    n_bts = TIMING.count("RTM_BOOTSTRAP")
-    t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
-    n_keys = TIMING.count("RTM_ROT_KEY_REGEN")
-    log(f"[phase 6] cold inference {t_cold:.1f} s, of which {n_keys} "
-        f"rotation keys {t_keys:.1f} s and bootstrap tables "
-        f"{TIMING.seconds('RTM_BS_SETUP'):.1f} s; launches {launches}; "
-        f"NTT limbs {limbs}")
-    log(TIMING.report())
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    plain = M.infer_plain(g, img, n_slots=DEGREE // 2)[:10]
-    scale = float(np.max(np.abs(plain)))
-    err = float(np.max(np.abs(out - plain)))
-    agree = int(np.argmax(out)) == int(np.argmax(plain))
-    log(f"[phase 6] logits {np.array2string(out, precision=4)}")
-    log(f"[phase 6] plain  {np.array2string(plain, precision=4)}")
-    log(f"[phase 6] max_err {err:.4e}; max|plain| {scale:.4f}, limit 0.1 * "
-        f"max|plain| = {0.1 * scale:.4e}; argmax agrees {agree}; "
-        f"bootstraps {n_bts}; {len(model.ctx.keygen._rot_keys)} rotation "
-        f"keys held; peak device memory {peak:.2f} GiB")
-    if not (np.all(np.isfinite(out)) and out.shape == (10,)):
-        raise AssertionError("logits are not finite or have the wrong shape")
-    if not agree:
-        raise AssertionError("argmax disagrees with infer_plain")
-    if not err <= 0.1 * scale:
-        raise AssertionError(f"max_err {err} > 0.1 * {scale}")
-    if n_bts != RESNET20_BOOTSTRAPS:
-        raise AssertionError(f"bootstraps per inference {n_bts}, expected "
-                             f"{RESNET20_BOOTSTRAPS}")
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched in ResNet-20: {idle}")
-    return {"launches": launches, "cold_s": t_cold, "rot_keygen_s": t_keys,
-            "keys": n_keys, "max_err": err, "max_plain": scale,
-            "peak_gib": peak}
+    row = zoo.run_model(name, g, cfg, ctx, [img], classes, trace=log)[0]
+    st = row["stats"]
+    t_setup = st["timing"].get("RTM_BS_SETUP", [0, 0.0])[1]
+    log(f"[phase 6] cold inference {row['seconds']:.1f} s, of which "
+        f"{st['rotation_keys']} rotation keys "
+        f"{st['rotation_key_seconds']:.1f} s and bootstrap tables "
+        f"{t_setup:.1f} s; launches {st['launches']}; NTT limbs "
+        f"{st['limbs']}")
+    log(TIMING.report(st["timing"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if gpu else 0.0
+    scale = st["max_plain"]
+    log(f"[phase 6] logits "
+        f"{np.array2string(np.array(st['logits']), precision=4)}")
+    log(f"[phase 6] plain  "
+        f"{np.array2string(np.array(st['plain_logits']), precision=4)}")
+    log(f"[phase 6] max_err {row['max_err']:.4e}; max|plain| {scale:.4f}, "
+        f"limit 0.1 * max|plain| = {0.1 * scale:.4e}; argmax agrees "
+        f"{row['argmax_agree']}; bootstraps {st['bootstraps']}; "
+        f"{st['rotation_keys_held']} rotation keys held; peak device "
+        f"memory {peak:.2f} GiB")
+    fails = zoo.gate_failures(row, classes, bootstraps, 0.1 * scale,
+                              kernels=False)
+    if not row["argmax_agree"]:
+        fails.append("argmax disagrees with infer_plain")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"launches": st["launches"], "cold_s": row["seconds"],
+            "rot_keygen_s": st["rotation_key_seconds"],
+            "keys": st["rotation_keys"], "max_err": row["max_err"],
+            "max_plain": scale, "peak_gib": peak,
+            "bootstraps": st["bootstraps"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1332,6 +1333,10 @@ def main() -> int:
         log(f"[summary] bootstrap: cold {bts['cold_s']:.2f} s, warm "
             f"{bts['warm_s']:.2f} s, max_err {bts['max_err']:.3e}")
         full = phase_resnet20()
+        idle = [k for k, v in full["launches"].items() if v == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched in ResNet-20: "
+                                 f"{idle}")
         for r in rows:
             r["launches"] = full["launches"][r["name"].split()[0]]
         log(f"[summary] ResNet-20: cold {full['cold_s']:.1f} s ("

@@ -207,3 +207,21 @@ def test_chip_smoke_runtime_services_on_cpu():
     assert res["checks"] > 3 and res["ckpt_bytes"] > 0
     assert 0 < res["key_hits"] <= 40
     assert res["launches"] and not any(res["launches"].values())
+
+
+def test_chip_smoke_resnet_phase_on_cpu():
+    """chip_smoke.py's phase 6 through the model zoo's path (cfg_for,
+    shared_context, run_model) on the CPU at a tiny size: the block graph
+    with a bootstrap before each of its two ReLUs at N = 64. The phase
+    holds its gates (finite logits, argmax, max_err, the zoo's row, the
+    bootstrap count); main() holds the launch gate, and on the CPU no
+    kernel counter moves."""
+    g = _block_graph()
+    img = np.random.default_rng(3).uniform(-1, 1, (1, 4, 4))
+    res = chip_smoke.phase_resnet20(
+        device="cpu", graph=g, img=img, name="block", bootstraps=2,
+        hamming_weight=16, first_mod_size=50, scaling_mod_size=40)
+    assert res["bootstraps"] == 2 and res["keys"] > 0
+    assert res["max_err"] <= 0.1 * res["max_plain"]
+    assert res["peak_gib"] == 0.0
+    assert res["launches"] and not any(res["launches"].values())

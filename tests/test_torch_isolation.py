@@ -1,7 +1,7 @@
 """PyTorch port: it stands alone. No file of ace_tpu_torch/, nor
-chip_smoke.py or run_resnet_torch.py, imports jax or ace_tpu; importing
-the port leaves jax unloaded; it reads no environment variable but the
-runtime timer's; its native host code is a source that builds outside
+chip_smoke.py, run_resnet_torch.py or scripts/torch_*.py, imports jax or
+ace_tpu; importing the port leaves jax unloaded; it reads no environment
+variable but the runtime timer's, and the zoo and accuracy scripts none; its native host code is a source that builds outside
 the package; its entry points refuse to fall back to the CPU
 silently."""
 
@@ -19,6 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _port_files():
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                               "run_resnet_torch.py")]
+    scripts = os.path.join(REPO, "scripts")
+    files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "ace_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -66,6 +69,20 @@ def test_reads_only_the_timing_variable():
                     "environ", "getenv", "environb", "getenvb"):
                 line = open(f).read().splitlines()[node.lineno - 1]
                 assert "RTLIB_TIMING_OUTPUT" in line, (f, line)
+
+
+def test_zoo_scripts_read_no_environment_variable():
+    """The zoo and accuracy scripts enable the timer through
+    TIMING.enabled, not RTLIB_TIMING_OUTPUT as scripts/zoo.py does."""
+    names = [os.path.join(REPO, "scripts", n) for n in ("torch_zoo.py",
+                                                         "torch_accuracy.py")]
+    assert set(names) <= set(_port_files())
+    for f in names:
+        src = open(f).read()
+        assert "RTLIB_TIMING_OUTPUT" not in src, f
+        for node in ast.walk(ast.parse(src, f)):
+            assert not (isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "environb", "getenvb")), (f, node.lineno)
 
 
 def test_native_sources_build_outside_the_package():
