@@ -7,3 +7,22 @@ def kernel_wrappers() -> dict:
     from ace_tpu_torch.ops import ntt4, pallas_modops as pm
     return {"K1": pm.barrett_mul, "K2": pm.shoup_mul, "K3": ntt4.ntt4_fwd,
             "K4": ntt4.ntt4_inv}
+
+
+def reset_counters() -> None:
+    """Every wrapper's `launches` (and the NTT wrappers' `limbs`) to 0."""
+    for w in kernel_wrappers().values():
+        w.launches = 0
+        if hasattr(w, "limbs"):
+            w.limbs = 0
+
+
+def read_counters() -> dict:
+    """Each kernel's launches since the last reset_counters."""
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def read_limbs() -> dict:
+    """Limbs transformed by the NTT kernels' launches."""
+    return {k: w.limbs for k, w in kernel_wrappers().items()
+            if hasattr(w, "limbs")}

@@ -98,14 +98,17 @@ class CrtContext:
             self._const_cache[key] = ntt.gather_tables(self.ntt_tables, idx)
         return self._const_cache[key]
 
+    def memo(self, key, build):
+        """The object cached under `key`; `build()` makes it on a miss."""
+        hit = self._const_cache.get(key)
+        if hit is None:
+            hit = self._const_cache[key] = build()
+        return hit
+
     def const(self, key, build):
         """A device tensor cached under `key`; `build()` returns the numpy
         (uint64 or int64) array on a miss."""
-        hit = self._const_cache.get(key)
-        if hit is None:
-            hit = modops.to_torch(build(), self.device)
-            self._const_cache[key] = hit
-        return hit
+        return self.memo(key, lambda: modops.to_torch(build(), self.device))
 
     def column(self, vals) -> torch.Tensor:
         """Python ints -> cached [len, 1] int64 column on the device."""

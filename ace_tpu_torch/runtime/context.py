@@ -4,8 +4,9 @@ The FheContext of `ace_tpu.runtime.context` (the reference's rtlib
 context.c Prepare_context:29-86 plus the io_api client/server split):
 the *client* holds the secret key and does encode/encrypt/decrypt on the
 host; the *server* holds only evaluation keys and runs the encrypted
-graph on the device, bootstrapping included. Single device: the JAX
-package's mesh options and its SPMD evaluator have no counterpart yet.
+graph on the device, bootstrapping included. `digit_mesh` routes the
+key switches through the SPMD evaluator (parallel/spmd_eval.py); the
+JAX package's limb-sharded `mesh` option has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -17,14 +18,18 @@ from ace_tpu_torch.runtime.timing import TIMING
 
 
 class FheContext:
-    """Prepare params -> keys -> encoder/evaluator on one device."""
+    """Prepare params -> keys -> encoder/evaluator."""
 
     def __init__(self, params: CkksParams = None, *, scheme_info=None,
                  seed: int = 0, max_rot_keys: int = 0,
-                 rot_key_budget_bytes: int = 0, device=None):
+                 rot_key_budget_bytes: int = 0, device=None,
+                 digit_mesh=None):
         """device: None runs on the card (and raises without one);
         "cpu" runs the plain versions. Ignored when `params` is given
-        (its CRT context fixes the device)."""
+        (its CRT context fixes the device).
+        digit_mesh: this rank's parallel.mesh.DigitSlotMesh; rotate, mul
+        and relinearize then go through the SPMD evaluator
+        (parallel/spmd_eval.py) with per-digit key residency."""
         from ace_tpu_torch.ckks.encoder import Encoder
         from ace_tpu_torch.ckks.keygen import KeyGenerator
         from ace_tpu_torch.ckks.evaluator import Evaluator
@@ -50,7 +55,13 @@ class FheContext:
             from ace_tpu_torch.utils.csprng import Blake2Csprng
             self.keygen = KeyGenerator(params, Blake2Csprng(seed),
                                        max_rot_keys=max_rot_keys)
-            self.evaluator = Evaluator(params, self.keygen, self.encoder)
+            if digit_mesh is not None:
+                from ace_tpu_torch.parallel.spmd_eval import SpmdEvaluator
+                self.evaluator = SpmdEvaluator(params, self.keygen,
+                                               self.encoder, digit_mesh)
+            else:
+                self.evaluator = Evaluator(params, self.keygen,
+                                           self.encoder)
         self._bts = {}  # slot count -> BootstrapContext
         self.pt_mgr = None
         self.manifest = None
@@ -172,6 +183,10 @@ class FheContext:
     def set_output_data(self, name: str, ct):
         """Server-side post (Set_output_data)."""
         self._io_outputs[name] = ct
+
+    def get_output_data(self, name: str):
+        """The ciphertext posted under `name` (before Handle_output)."""
+        return self._io_outputs[name]
 
     def handle_output(self, name: str, length: int = 0) -> np.ndarray:
         """Client-side decrypt+decode (Handle_output). Residual limbs

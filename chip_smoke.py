@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero and prints no result line.
+Nine phases; any failure exits non-zero and prints no result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -19,11 +19,12 @@ Eight phases; any failure exits non-zero and prints no result line.
   4. the slice: ResNet-20's first residual block (ops[:6] of
      build_resnet_cifar(3), output /layer1/layer1.0/Add_output_0)
      encrypted at N = 2^15 with a 34-prime chain, through compile_model
-     and infer_encrypted, against infer_plain; every kernel's launch
-     counter must grow during the inference.
+     and infer_encrypted, cold then warm, against infer_plain; every
+     kernel's launch counter must grow during the inference. Its output
+     residues are phase 9b's reference.
   5. one bootstrap at the same ring and chain: uniform(-0.7, 0.7) in N/2
-     slots at level 2, through FheContext.bootstrap cold, warm and warm
-     under the profiler; levels regained, decoded within 2e-2.
+     slots at level 2, through FheContext.bootstrap cold and warm;
+     levels regained, decoded within 2e-2.
   6. all of ResNet-20 (build_resnet_cifar(3), a bootstrap before each of
      its 19 ReLUs) at the parameters select_params picks, through the
      model zoo's path (scripts/torch_zoo.py: cfg_for, shared_context and
@@ -45,6 +46,13 @@ Eight phases; any failure exits non-zero and prints no result line.
      attention_plain within 2e-2, stage by stage, and one projection
      under the profiler. The kernel rows' `launches_llama` count the
      block.
+  9. the digit x slot SPMD key switch (ace_tpu_torch/parallel, see
+     phase_spmd) on worlds of spawned ranks that share the card through
+     gloo: rotate, mul and the conv slice at level 34 on a 3 x 2 world,
+     bit-identical to the single-device Evaluator; phase 4's model
+     through FheContext(digit_mesh=...) on a 3 x 1 world, equal to phase
+     4's output residues; one rotate on a one-rank NCCL world. The
+     kernel rows' `launches_spmd` count 9a-9b over all ranks.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -119,26 +127,6 @@ def syncer(device):
     if torch.device(device).type == "cuda":
         return torch.cuda.synchronize
     return lambda: None
-
-
-def reset_counters() -> None:
-    from ace_tpu_torch.ops import kernel_wrappers
-    for w in kernel_wrappers().values():
-        w.launches = 0
-        if hasattr(w, "limbs"):
-            w.limbs = 0
-
-
-def read_counters() -> dict:
-    from ace_tpu_torch.ops import kernel_wrappers
-    return {k: w.launches for k, w in kernel_wrappers().items()}
-
-
-def read_limbs() -> dict:
-    """Limbs transformed by the NTT kernels' launches."""
-    from ace_tpu_torch.ops import kernel_wrappers
-    return {k: w.limbs for k, w in kernel_wrappers().items()
-            if hasattr(w, "limbs")}
 
 
 # ---------------------------------------------------------------------------
@@ -423,16 +411,15 @@ def cpu_replay(kw, kg, ct, rot, rot_g, mul_g, tag) -> None:
 # Phase 4: ResNet-20's first residual block, encrypted
 # ---------------------------------------------------------------------------
 
-def phase_slice() -> dict:
-    import torch
+def slice_model() -> dict:
+    """Phase 4's model: ResNet-20's ops[:6] with its calibrated ReLU
+    ranges, the scheme select_params picks with the chain set to 34 q
+    primes, and the seeded input. Phase 9b runs it again."""
     from ace_tpu_torch.compiler.relu_ranges import ranges_for
     from ace_tpu_torch.compiler.scheme_info import (SchemeConfig,
                                                     select_params)
     from ace_tpu_torch.models import resnet as M
-    from ace_tpu_torch.runtime.context import FheContext
-    from ace_tpu_torch.runtime.timing import TIMING
 
-    TIMING.enabled = True
     g = M.build_resnet_cifar(3)
     g.ops = g.ops[:6]
     g.output_name = g.ops[-1].outputs[0]
@@ -450,16 +437,32 @@ def phase_slice() -> dict:
         f"mul_level={info.mul_level} input_level={info.input_level}; "
         f"mul_level set to {NUM_Q - 1}")
     info.mul_level = NUM_Q - 1
+    return {"graph": g, "cfg": cfg, "info": info, "img": img,
+            "out_len": 16 * 32 * 32}
+
+
+def phase_slice(sm: dict) -> dict:
+    """Phase 4 on slice_model()'s model: cold (keys made on demand), then
+    warm. Returns the first inference's output residues for phase 9b."""
+    import torch
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.ops import (modops, read_counters, read_limbs,
+                                   reset_counters)
+    from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.runtime.timing import TIMING
+
+    TIMING.enabled = True
+    g, img, out_len = sm["graph"], sm["img"], sm["out_len"]
     t0 = time.perf_counter()
-    ctx = FheContext(scheme_info=info, max_rot_keys=100)
+    ctx = FheContext(scheme_info=sm["info"], max_rot_keys=100)
     torch.cuda.synchronize()
     t_ctx = time.perf_counter() - t0
     crt = ctx.params.crt
     log(f"[phase 4] context {t_ctx:.1f} s: N={ctx.params.degree}, "
         f"{crt.num_q} q primes + {crt.num_p} P primes, "
         f"{ctx.params.num_q_parts} digits")
-    out_len = 16 * 32 * 32
-    model = M.compile_model(g, cfg, ctx=ctx, num_classes=out_len, trace=log)
+    model = M.compile_model(g, sm["cfg"], ctx=ctx, num_classes=out_len,
+                            trace=log)
 
     reset_counters()
     TIMING.reset()
@@ -469,12 +472,15 @@ def phase_slice() -> dict:
     t_inf = time.perf_counter() - t0
     launches = read_counters()
     limbs = read_limbs()
+    ct = ctx.get_output_data("output")
+    residues = (modops.to_numpy(ct.c0.data), modops.to_numpy(ct.c1.data))
     t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
     log(f"[phase 4] inference {t_inf:.1f} s, of which rotation-key "
         f"generation {t_keys:.1f} s ({TIMING.count('RTM_ROT_KEY_REGEN')} "
         f"keys); launches {launches}; NTT limbs {limbs} (mean "
         + ", ".join(f"{k} {limbs[k] / max(launches[k], 1):.1f}"
-                    for k in limbs) + " limbs per launch)")
+                    for k in limbs) + " limbs per launch); output at "
+        f"level {ct.level}")
     log(TIMING.report())
 
     t0 = time.perf_counter()
@@ -482,20 +488,18 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     log(f"[phase 4] second inference (keys held) {t_warm:.1f} s")
-    out3 = profile_inference(lambda: M.infer_encrypted(model, img), t_warm)
 
     plain = M.infer_plain(g, img, n_slots=DEGREE // 2)[:out_len]
     scale = float(np.max(np.abs(plain)))
-    errs = [float(np.max(np.abs(o - plain))) for o in (out, out2, out3)]
-    log(f"[phase 4] max_err {errs[0]:.4e} (second run {errs[1]:.4e}, "
-        f"profiled run {errs[2]:.4e}), "
+    errs = [float(np.max(np.abs(o - plain))) for o in (out, out2)]
+    log(f"[phase 4] max_err {errs[0]:.4e} (second run {errs[1]:.4e}), "
         f"max|plain| {scale:.4f}, limit 5e-2 * max|plain| = "
         f"{5e-2 * scale:.4e}")
     log(f"[phase 4] {ctx.hbm_plan()}")
     log(f"[phase 4] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not all(np.all(np.isfinite(o)) and o.shape == (out_len,)
-               for o in (out, out2, out3)):
+               for o in (out, out2)):
         raise AssertionError("output is not finite or has the wrong shape")
     if not max(errs) <= 5e-2 * scale:
         raise AssertionError(f"max_err {max(errs)} > 5e-2 * {scale}")
@@ -504,10 +508,10 @@ def phase_slice() -> dict:
         raise AssertionError(f"kernels never launched in the slice: {idle}")
     return {"launches": launches, "context_s": t_ctx, "inference_s": t_inf,
             "rot_keygen_s": t_keys, "warm_inference_s": t_warm,
-            "max_err": errs[0], "max_plain": scale}
+            "max_err": errs[0], "max_plain": scale, "residues": residues}
 
 
-def profile_inference(run, unprofiled_s: float, tag: str = "[phase 4]",
+def profile_inference(run, unprofiled_s: float, tag: str,
                       device="cuda"):
     """One more warm run under torch.profiler: kernel time by name and
     the device's busy share. The profiler records the device's activity
@@ -577,11 +581,12 @@ def phase_bootstrap() -> dict:
     """tests/test_bootstrap.py at ResNet-20's ring: uniform(-0.7, 0.7) in
     N/2 slots encrypted at level 2, bootstrapped through
     FheContext.bootstrap cold (the bootstrap tables and its 91 rotation
-    keys and the conjugation key made on demand), warm, and warm under
-    torch.profiler. Each output must regain levels and decode within
-    2e-2 (that test's bound); every kernel's counter must grow."""
+    keys and the conjugation key made on demand), then warm. Each output
+    must regain levels and decode within 2e-2 (that test's bound); every
+    kernel's counter must grow."""
     import torch
     from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.ops import read_counters, reset_counters
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.runtime.timing import TIMING
 
@@ -616,7 +621,6 @@ def phase_bootstrap() -> dict:
     t_warm = time.perf_counter() - t0
     log(f"[phase 5] warm bootstrap {t_warm:.2f} s")
     log(TIMING.report())
-    outs.append(profile_inference(run, t_warm, "[phase 5]"))
     errs = []
     for out in outs:
         ctx.set_output_data("bts", out)
@@ -830,6 +834,7 @@ def phase_runtime_services(g, img, vr_default: float, vr: dict,
     from ace_tpu_torch.compiler.scheme_info import (SchemeConfig,
                                                     select_params)
     from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.ops import read_counters, reset_counters
     from ace_tpu_torch.runtime import ckpt
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.runtime.timing import TIMING
@@ -1208,6 +1213,7 @@ def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
     from ace_tpu_torch.ckks.keygen import KeyGenerator
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.models import llama_fhe as LF
+    from ace_tpu_torch.ops import read_counters, read_limbs, reset_counters
     from ace_tpu_torch.runtime.timing import TIMING
 
     dev = resolve_device(device)
@@ -1304,6 +1310,321 @@ def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the digit x slot SPMD key switch on worlds of ranks
+# ---------------------------------------------------------------------------
+
+SPMD_SLOTS = 2   # 9a: Q_PARTS digits x 2 slots, six ranks sharing the card
+SPMD_ROT = 1
+SPMD_TOL = 1e-2  # the dry run's decode bound (__graft_entry__.py)
+NCCL_LEVEL = 12  # 9c: one digit (34 q primes in 3 parts of 12)
+
+
+def spmd_kw(degree: int = DEGREE) -> dict:
+    """ResNet-20's ring and chain, as phases 3 and 5 use them."""
+    return dict(degree=degree, num_q=NUM_Q, first_mod_size=60,
+                scaling_mod_size=56, hamming_weight=192,
+                num_q_parts=Q_PARTS)
+
+
+def spmd_ops(ctx, msg) -> dict:
+    """9a's ops on msg encrypted at the top level: rotate by SPMD_ROT,
+    mul (mul3, then relinearize), and the dry run's conv slice
+    (scripts/torch_multichip.py's conv_slice)."""
+    from ace_tpu_torch.utils.scripts import load_script
+    ev = ctx.evaluator
+    ct = ctx.prepare_input(msg, "x")
+    return {"rotate": ev.rotate(ct, SPMD_ROT), "mul": ev.mul(ct, ct),
+            "conv": load_script("torch_multichip").conv_slice(ctx, ct)}
+
+
+def spmd_expect(msg) -> dict:
+    from ace_tpu_torch.utils.scripts import load_script
+    return {"rotate": np.roll(msg, -SPMD_ROT), "mul": msg ** 2,
+            "conv": load_script("torch_multichip").conv_plain(msg)}
+
+
+def _digest(ct) -> str:
+    import hashlib
+    from ace_tpu_torch.ops import modops
+    h = hashlib.sha256()
+    for p in (ct.c0, ct.c1):
+        h.update(modops.to_numpy(p.data).tobytes())
+    return h.hexdigest()
+
+
+def _rank_enter(mesh, t_spawn: float) -> dict:
+    """Seconds after the parent's spawn at which this rank had imported
+    torch and the port (`import_s`), joined the process group
+    (`group_s`), made its mesh's groups (`entry_s`) and held a CUDA
+    context (`context_s`)."""
+    import torch
+    tl = mesh.timeline
+    res = {"import_s": tl["start"] - t_spawn,
+           "group_s": tl["process_group"] - t_spawn,
+           "entry_s": tl["mesh"] - t_spawn}
+    if mesh.device.type == "cuda":
+        torch.zeros(1, device=mesh.device)
+        torch.cuda.synchronize(mesh.device)
+    res["context_s"] = time.time() - t_spawn
+    return res
+
+
+def _rank_exit(mesh, res: dict) -> dict:
+    """This rank's launches (since the last reset) and collectives, the
+    launches summed over the world, and the rank's device memory (its
+    own process's allocations: 0 on the CPU)."""
+    import torch
+    from ace_tpu_torch.ops import read_counters
+    res["launches"] = read_counters()
+    cuda = mesh.device.type == "cuda"
+    res["allocated_b"] = torch.cuda.memory_allocated(mesh.device) if cuda \
+        else 0
+    res["max_allocated_b"] = (torch.cuda.max_memory_allocated(mesh.device)
+                              if cuda else 0)
+    res["mesh"] = mesh.stats()
+    names = sorted(res["launches"])
+    res["launches_world"] = dict(zip(names, mesh.sum_over_world(
+        [res["launches"][k] for k in names])))
+    return res
+
+
+def rank_spmd_ops(mesh, kw, seed, msg, t_spawn):
+    """9a on one rank: spmd_ops through FheContext(digit_mesh=mesh)."""
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.ops import reset_counters
+    from ace_tpu_torch.runtime.context import FheContext
+    res = _rank_enter(mesh, t_spawn)
+    sync = syncer(mesh.device)
+    t0 = time.perf_counter()
+    ctx = FheContext(CkksParams(**kw, device=mesh.device), seed=seed,
+                     digit_mesh=mesh)
+    sync()
+    res["setup_s"] = time.perf_counter() - t0
+    reset_counters()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    outs = spmd_ops(ctx, msg)
+    sync()
+    res["ops_s"] = time.perf_counter() - t0
+    ev = ctx.evaluator
+    res["digests"] = {k: _digest(v) for k, v in outs.items()}
+    res["switches"] = ev.spmd_switches
+    res["resident"] = {lv: k.key_memory_resident_bytes()
+                       for lv, k in ev._spmd.items() if k is not None}
+    res["full_keys_b"] = sum(k.nbytes for k in ctx.keygen.all_keys())
+    res["report"] = ev.key_residency_report()
+    return _rank_exit(mesh, res)
+
+
+def rank_spmd_model(mesh, sm, want, t_spawn):
+    """9b on one rank: phase 4's model through compile_model and
+    infer_encrypted with FheContext(digit_mesh=mesh); its output
+    residues against phase 4's (`want`)."""
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.ops import modops, reset_counters
+    from ace_tpu_torch.runtime.context import FheContext
+    res = _rank_enter(mesh, t_spawn)
+    sync = syncer(mesh.device)
+    t0 = time.perf_counter()
+    ctx = FheContext(scheme_info=sm["info"], max_rot_keys=100,
+                     device=mesh.device, digit_mesh=mesh)
+    model = M.compile_model(sm["graph"], sm["cfg"], ctx=ctx,
+                            num_classes=sm["out_len"])
+    sync()
+    res["setup_s"] = time.perf_counter() - t0
+    reset_counters()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    M.infer_encrypted(model, sm["img"])
+    sync()
+    res["inference_s"] = time.perf_counter() - t0
+    ct = ctx.get_output_data("output")
+    res["level"] = ct.level
+    res["equal"] = (np.array_equal(modops.to_numpy(ct.c0.data), want[0])
+                    and np.array_equal(modops.to_numpy(ct.c1.data),
+                                       want[1]))
+    res["switches"] = ctx.evaluator.spmd_switches
+    res["report"] = ctx.evaluator.key_residency_report()
+    return _rank_exit(mesh, res)
+
+
+def rank_one(mesh, kw, seed, msg, level, t_spawn):
+    """9c on a one-rank world: SpmdKeySwitch.rotate at `level`."""
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.ops import reset_counters
+    from ace_tpu_torch.parallel.spmd import SpmdKeySwitch
+    from ace_tpu_torch.runtime.context import FheContext
+    res = _rank_enter(mesh, t_spawn)
+    ctx = FheContext(CkksParams(**kw, device=mesh.device), seed=seed)
+    ct = ctx.prepare_input(msg, "x", level=level)
+    ksw = SpmdKeySwitch(ctx.params, level, mesh)
+    reset_counters()
+    mesh.reset_stats()
+    res["digest"] = _digest(ksw.rotate(ct, SPMD_ROT, ctx.keygen))
+    syncer(mesh.device)()
+    res["switches"] = ksw.switches
+    return _rank_exit(mesh, res)
+
+
+def _rank_line(tag: str, r: int, res: dict, *keys) -> None:
+    m = res["mesh"]
+    log(f"{tag} rank {r}: imported {res['import_s']:.1f} s, process group "
+        f"{res['group_s']:.1f} s, mesh {res['entry_s']:.1f} s, CUDA context "
+        f"{res['context_s']:.1f} s after spawn; "
+        + "".join(f"{k} {res[k]:.2f} s; " for k in keys)
+        + f"{res['switches']} SPMD key switches; {m['collectives']} "
+        f"collectives {m['collective_s']:.2f} s, staged {m['staged_bytes']}"
+        f" B in {m['staged_s']:.2f} s; device memory allocated "
+        f"{res['allocated_b']} B, peak {res['max_allocated_b']} B; launches "
+        f"{res['launches']}")
+
+
+def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
+               want=None) -> dict:
+    """The digit x slot SPMD key switch (ace_tpu_torch/parallel) on three
+    worlds of spawned ranks, every rank on the same card (gloo stages
+    the collectives through the host; NCCL refuses two ranks on one
+    device):
+      a. a Q_PARTS x SPMD_SLOTS gloo world: spmd_ops at the top level, every
+         rank bit-identical to the single-device Evaluator under the same
+         seeded keys, decoding within SPMD_TOL of the plain values; each
+         rank stacks 1/(D*s) of every key it used (its KeyGenerator
+         still holds the full keys: the rank lines give its device
+         memory);
+      b. a Q_PARTS x 1 gloo world: `sm` (phase 4's model) through
+         compile_model and infer_encrypted with FheContext(digit_mesh=),
+         the output residues equal to `want` (phase 4's), with at least
+         one SPMD key switch on every rank;
+      c. a one-rank world on NCCL (gloo on the CPU, where NCCL does not
+         run): SpmdKeySwitch.rotate at level NCCL_LEVEL (one digit),
+         equal to the single-device rotate.
+    Every rank must launch K1 in a and b. Returns the kernels' launches
+    in a and b summed over the ranks, and the seconds of each part.
+    device=None is the card; "cpu" rehearses every part on gloo."""
+    import torch
+    from ace_tpu_torch import resolve_device
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.parallel.mesh import file_rendezvous, run_world
+    from ace_tpu_torch.runtime.context import FheContext
+
+    dev = resolve_device(device)
+    kw = kw or spmd_kw()
+    digits, slots = kw["num_q_parts"], SPMD_SLOTS
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        mode = smi.stdout.strip()
+        log(f"[phase 9] compute mode: {mode}")
+        if "Exclusive" in mode:
+            raise RuntimeError(f"compute mode {mode}: the ranks cannot "
+                               f"share the card")
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.empty_cache()
+    sync = syncer(dev)
+    msg = np.random.default_rng(SEED + 9).uniform(-1, 1, kw["degree"] // 2)
+    secs = {}
+
+    def world(fn, d, s, backend, *args):
+        t0 = time.perf_counter()
+        with file_rendezvous(kernels.build_dir()) as rdv:
+            out = run_world(fn, d, s, backend, str(dev), rdv,
+                            args + (time.time(),))
+        return out, time.perf_counter() - t0
+
+    def k1_everywhere(tag, ranks):
+        if not all(r["launches"]["K1"] > 0 for r in ranks) \
+                and dev.type == "cuda":
+            raise AssertionError(f"{tag} K1 did not launch on every rank: "
+                                 f"{[r['launches'] for r in ranks]}")
+
+    # a. key switches on a digits x slots world
+    ranks, secs["9a"] = world(rank_spmd_ops, digits, slots, "gloo", kw,
+                              SEED, msg)
+    tag = "[phase 9a]"
+    for r, res in enumerate(ranks):
+        _rank_line(tag, r, res, "setup_s", "ops_s")
+    t0 = time.perf_counter()
+    params = CkksParams(**kw, device=dev)
+    ctx = FheContext(params, seed=SEED)
+    ref = spmd_ops(ctx, msg)
+    sync()
+    secs["9a_single"] = time.perf_counter() - t0
+    want_a = {k: _digest(v) for k, v in ref.items()}
+    bad = [r for r, res in enumerate(ranks) if res["digests"] != want_a]
+    if bad:
+        raise AssertionError(f"{tag} ranks {bad} differ from the "
+                             f"single-device Evaluator")
+    errs, plain = {}, spmd_expect(msg)
+    for k, v in ref.items():
+        ctx.set_output_data(k, v)
+        errs[k] = float(np.max(np.abs(ctx.handle_output(k, 64)
+                                      - plain[k][:64])))
+    log(f"{tag} {len(ranks)} ranks ({digits} x {slots}) bit-identical to "
+        f"the single-device Evaluator ({secs['9a_single']:.2f} s alone) "
+        f"for rotate, mul and the conv slice; max decode errors {errs} "
+        f"(limit {SPMD_TOL}); world {secs['9a']:.1f} s")
+    if not max(errs.values()) <= SPMD_TOL:
+        raise AssertionError(f"{tag} decode errors {errs}")
+    key_b = ctx.keygen.relin_key.nbytes
+    top = kw["num_q"]
+    for r, res in enumerate(ranks):
+        per = res["resident"]
+        # rotations SPMD_ROT and 8 and the relinearization key at the top
+        if per[top] * digits * slots != 3 * key_b:
+            raise AssertionError(f"{tag} rank {r} holds {per[top]} B of "
+                                 f"keys at level {top}, not 3 x {key_b} / "
+                                 f"{digits * slots}")
+    log(f"{tag} key stack bytes by level, rank 0: {ranks[0]['resident']}"
+        f" (at level {top}: 3 keys of {key_b} B, each 1/{digits * slots} "
+        f"per rank = {key_b // (digits * slots)} B); {ranks[0]['report']}; "
+        f"the rank's KeyGenerator also holds the full keys, "
+        f"{ranks[0]['full_keys_b']} B (device memory: the rank lines)")
+    if any(res["switches"] <= 0 for res in ranks):
+        raise AssertionError(f"{tag} a rank took no SPMD key switch")
+    k1_everywhere(tag, ranks)
+    launches = dict(ranks[0]["launches_world"])
+    del ctx, ref
+
+    # b. the model path on a digits x 1 world
+    tag = "[phase 9b]"
+    ranks_b, secs["9b"] = world(rank_spmd_model, digits, 1, "gloo", sm,
+                                want)
+    for r, res in enumerate(ranks_b):
+        _rank_line(tag, r, res, "setup_s", "inference_s")
+    if not all(res["equal"] for res in ranks_b):
+        raise AssertionError(f"{tag} output residues differ from phase 4's: "
+                             f"{[res['equal'] for res in ranks_b]}")
+    if any(res["switches"] <= 0 for res in ranks_b):
+        raise AssertionError(f"{tag} no SPMD key switch was taken: "
+                             f"{[res['switches'] for res in ranks_b]}")
+    k1_everywhere(tag, ranks_b)
+    for k, v in ranks_b[0]["launches_world"].items():
+        launches[k] += v
+    log(f"{tag} {len(ranks_b)} ranks: output (level {ranks_b[0]['level']})"
+        f" equal to phase 4's residue for residue, "
+        f"{ranks_b[0]['switches']} SPMD key switches a rank; "
+        f"{ranks_b[0]['report']}; world {secs['9b']:.1f} s")
+
+    # c. a one-rank world on NCCL
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    tag = f"[phase 9c {backend}]"
+    ranks_c, secs["9c"] = world(rank_one, 1, 1, backend, kw, SEED, msg,
+                                NCCL_LEVEL)
+    _rank_line(tag, 0, ranks_c[0])
+    ctx = FheContext(params, seed=SEED)
+    ct = ctx.prepare_input(msg, "x", level=NCCL_LEVEL)
+    if ranks_c[0]["digest"] != _digest(ctx.evaluator.rotate(ct, SPMD_ROT)):
+        raise AssertionError(f"{tag} SpmdKeySwitch.rotate differs from the "
+                             f"single-device rotate")
+    log(f"{tag} rotate at level {NCCL_LEVEL} ({params.crt.num_decomp(NCCL_LEVEL)}"
+        f" digit) bit-identical to the single-device rotate; world "
+        f"{secs['9c']:.1f} s")
+    return {"launches_spmd": launches, "seconds": secs}
+
+
 def main() -> int:
     try:
         import torch
@@ -1314,7 +1635,13 @@ def main() -> int:
         sys.path.insert(0, REPO)
         import ace_tpu_torch  # noqa: F401  (fails outside the repo)
         t_start = time.perf_counter()
+        secs = {}  # seconds of each phase
+
+        def lap(phase: str) -> None:
+            secs[phase] = time.perf_counter() - t_start - sum(secs.values())
+
         dev = phase_device_and_build()
+        lap("1")
         from ace_tpu_torch.poly.rns import CrtContext
         t0 = time.perf_counter()
         crt = CrtContext(NUM_Q, 60, 56, DEGREE, Q_PARTS, device="cuda")
@@ -1322,17 +1649,23 @@ def main() -> int:
         log(f"[phase 2] CRT context and NTT tables "
             f"{time.perf_counter() - t0:.1f} s")
         rows = phase_kernels(crt)
+        lap("2")
         phase_ops_exact()
-        res = phase_slice()
+        lap("3")
+        sm = slice_model()
+        res = phase_slice(sm)
+        lap("4")
         log(f"[summary] ops[:6]: context {res['context_s']:.2f} s, "
             f"inference {res['inference_s']:.2f} s (rotation keygen "
             f"{res['rot_keygen_s']:.2f} s), warm inference "
             f"{res['warm_inference_s']:.2f} s, max_err "
             f"{res['max_err']:.3e} of max|plain| {res['max_plain']:.3f}")
         bts = phase_bootstrap()
+        lap("5")
         log(f"[summary] bootstrap: cold {bts['cold_s']:.2f} s, warm "
             f"{bts['warm_s']:.2f} s, max_err {bts['max_err']:.3e}")
         full = phase_resnet20()
+        lap("6")
         idle = [k for k, v in full["launches"].items() if v == 0]
         if idle:
             raise AssertionError(f"kernels never launched in ResNet-20: "
@@ -1353,6 +1686,7 @@ def main() -> int:
             g, [img], *ranges_for("resnet20_cifar10"))
         t0 = time.perf_counter()
         svc = phase_runtime_services(g, img, vr_default, vr)
+        lap("7")
         idle = [k for k, v in svc["launches"].items() if v == 0]
         if idle:
             raise AssertionError(f"kernels never launched in phase 7: "
@@ -1368,6 +1702,7 @@ def main() -> int:
             f"script {time.perf_counter() - t_start:.1f} s")
         t0 = time.perf_counter()
         att = phase_attention()
+        lap("8")
         idle = [k for k, v in att["launches"].items() if v == 0]
         if idle:
             raise AssertionError(f"kernels never launched in the attention "
@@ -1383,6 +1718,19 @@ def main() -> int:
             f"projection {att['projection_s']:.2f} s; phase "
             f"{time.perf_counter() - t0:.1f} s; script "
             f"{time.perf_counter() - t_start:.1f} s")
+        del att
+        spmd = phase_spmd(sm=sm, want=res["residues"])
+        lap("9")
+        for r in rows:
+            r["launches_spmd"] = spmd["launches_spmd"][r["name"].split()[0]]
+        log(f"[summary] SPMD key switch: worlds 9a {spmd['seconds']['9a']:.1f}"
+            f" s, 9b {spmd['seconds']['9b']:.1f} s, 9c "
+            f"{spmd['seconds']['9c']:.1f} s; launches in 9a-9b over all "
+            f"ranks {spmd['launches_spmd']}")
+        log("[summary] phase seconds " + ", ".join(
+            f"{k}: {v:.1f}" for k, v in secs.items())
+            + f"; script {time.perf_counter() - t_start:.1f} s on "
+            f"{dev['card']}")
         print(dev["card"])
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

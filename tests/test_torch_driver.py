@@ -23,7 +23,7 @@ from ace_tpu_torch.utils import options as toptions
 
 import chip_smoke
 
-from tests.torch_port_util import assert_poly_equal
+from tests.torch_port_util import assert_poly_equal, one_thread
 
 # tests/test_options.py's lines (scripts/build_resnet20_cifar10.sh)
 LINES = [
@@ -165,12 +165,12 @@ def test_read_cifar_batch(tmp_path, classes):
         np.testing.assert_array_equal(tlabels, labels)
 
 
-def _block_graph():
-    """ResNet-20's first residual block at 2 channels on 4x4 (the graph of
-    tests/test_torch_slice.py, float32 weights as an ONNX file holds
-    them): Conv -> ReLU -> Conv -> ReLU -> Conv -> Add(residual)."""
+def _block_graph(hw: int = 4):
+    """ResNet-20's first residual block at 2 channels on hw x hw (at 4x4
+    the graph of tests/test_torch_slice.py, float32 weights as an ONNX
+    file holds them): Conv -> ReLU -> Conv -> ReLU -> Conv -> Add."""
     rng = np.random.default_rng(59)
-    c, s = 2, (1, 2, 4, 4)
+    c, s = 2, (1, 2, hw, hw)
     w = {"w1": rng.uniform(-0.5, 0.5, (c, 1, 3, 3)),
          "b1": rng.uniform(-0.1, 0.1, c),
          "w2": rng.uniform(-0.3, 0.3, (c, c, 3, 3)),
@@ -181,13 +181,13 @@ def _block_graph():
     conv = {"dilations": [1, 1], "group": 1, "kernel_shape": [3, 3],
             "pads": [1, 1, 1, 1], "strides": [1, 1]}
     ops = [NNOp("Conv", "conv1", ["input", "w1", "b1"], ["c1"], conv,
-                (1, 1, 4, 4), s),
+                (1, 1, hw, hw), s),
            NNOp("Relu", "relu1", ["c1"], ["r1"], {}, s, s),
            NNOp("Conv", "conv2", ["r1", "w2", "b2"], ["c2"], conv, s, s),
            NNOp("Relu", "relu2", ["c2"], ["r2"], {}, s, s),
            NNOp("Conv", "conv3", ["r2", "w3", "b3"], ["c3"], conv, s, s),
            NNOp("Add", "add", ["c3", "r1"], ["out"], {}, s, s)]
-    return NNGraph(ops, w, "input", (1, 1, 4, 4), "out")
+    return NNGraph(ops, w, "input", (1, 1, hw, hw), "out")
 
 
 def test_chip_smoke_runtime_services_on_cpu():
@@ -225,3 +225,41 @@ def test_chip_smoke_resnet_phase_on_cpu():
     assert res["max_err"] <= 0.1 * res["max_plain"]
     assert res["peak_gib"] == 0.0
     assert res["launches"] and not any(res["launches"].values())
+
+
+def test_chip_smoke_spmd_phase_on_cpu():
+    """chip_smoke.py's phase 9 as main() calls it, at degree 2^10 on the
+    CPU (gloo for all three worlds): 9a at ResNet-20's chain (34 q
+    primes, 3 digits) on 3 x 2 ranks; 9b on 3 x 1 ranks with the block
+    graph on 16x16 (select_params picks N = 2^10) and the chain set to 34
+    q primes as phase 4 sets it, its reference residues from a
+    single-device run as main() takes phase 4's; 9c on one rank. The
+    phase holds every rank bit-exact itself; on the CPU no kernel
+    counter moves."""
+    from ace_tpu_torch.compiler.scheme_info import (SchemeConfig,
+                                                    select_params)
+    from ace_tpu_torch.ops import modops
+    from ace_tpu_torch.runtime.context import FheContext as TContext
+    with one_thread():
+        g = _block_graph(16)
+        img = np.random.default_rng(3).uniform(-1, 1, (1, 16, 16))
+        vr_default, vr = TM.calibrate_relu_ranges(g, [img], 4.0, {})
+        cfg = SchemeConfig(security_level=0, hamming_weight=16,
+                           first_mod_size=60, scaling_mod_size=56,
+                           relu_mul_depth=9, relu_value_range=vr_default,
+                           relu_ranges=vr, use_bootstrap=False)
+        info = select_params(g, cfg)
+        assert (info.poly_degree, info.q_part_num) == (1024, 3)
+        info.mul_level = chip_smoke.NUM_Q - 1
+        sm = {"graph": g, "cfg": cfg, "info": info, "img": img,
+              "out_len": 32}
+        ctx = TContext(scheme_info=info, max_rot_keys=100, device="cpu")
+        model = TM.compile_model(g, cfg, ctx=ctx, num_classes=32)
+        TM.infer_encrypted(model, img)
+        ct = ctx.get_output_data("output")
+        want = (modops.to_numpy(ct.c0.data), modops.to_numpy(ct.c1.data))
+        res = chip_smoke.phase_spmd(
+            device="cpu", kw=chip_smoke.spmd_kw(1024), sm=sm, want=want)
+    assert sorted(res["seconds"]) == ["9a", "9a_single", "9b", "9c"]
+    assert sorted(res["launches_spmd"]) == ["K1", "K2", "K3", "K4"]
+    assert not any(res["launches_spmd"].values())

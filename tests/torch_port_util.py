@@ -5,6 +5,8 @@ their residues with np.asarray(poly.data), and ace_tpu_torch.interop
 builds the port's objects from them.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -40,16 +42,19 @@ def port_ct(ct):
                               num_p=ct.c0.num_p)
 
 
-def port_keygen(params_t, kg, rng=None):
-    """A port KeyGenerator holding the keys of ace_tpu KeyGenerator kg
-    (the relin key and every rotation key it holds)."""
+def key_arrays(kg) -> tuple:
+    """The keys of ace_tpu KeyGenerator kg (secret, public, relin and
+    every rotation key it holds) as interop.keygen's numpy arguments."""
     rot = {ai: (ai, [arr(p) for p in key.b], [arr(p) for p in key.a])
            for ai, key in kg._rot_keys.items()}
-    return interop.keygen(
-        params_t, kg.sk.coeffs, arr(kg.sk.ntt_sk), arr(kg.pk.b),
-        arr(kg.pk.a),
-        ([arr(p) for p in kg.relin_key.b], [arr(p) for p in kg.relin_key.a]),
-        rot, rng=rng)
+    return (kg.sk.coeffs, arr(kg.sk.ntt_sk), arr(kg.pk.b), arr(kg.pk.a),
+            ([arr(p) for p in kg.relin_key.b],
+             [arr(p) for p in kg.relin_key.a]), rot)
+
+
+def port_keygen(params_t, kg, rng=None):
+    """A port KeyGenerator holding the keys of ace_tpu KeyGenerator kg."""
+    return interop.keygen(params_t, *key_arrays(kg), rng=rng)
 
 
 def assert_poly_equal(got, want) -> None:
@@ -64,3 +69,17 @@ def assert_ct_equal(got, want) -> None:
     assert got.scaling_factor == want.scaling_factor
     assert_poly_equal(got.c0, want.c0)
     assert_poly_equal(got.c1, want.c1)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block. Tests that spawn worlds
+    of ranks use it: with the other test workers they oversubscribe the
+    host's cores, and torch's spinning intra-op threads then slow this
+    process many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
