@@ -501,8 +501,9 @@ class BootstrapContext:
         while ct.sf_degree > 1:
             ct = ev.rescale(ct)
         # use only the last tower: drop to level 1, to coeff form
-        c0 = RnsPoly(ct.c0.data[:1], 1, 0, ct.c0.is_ntt)
-        c1 = RnsPoly(ct.c1.data[:1], 1, 0, ct.c1.is_ntt)
+        k = crt.q_rows(1)
+        c0 = RnsPoly(ct.c0.data[:k], 1, 0, ct.c0.is_ntt)
+        c1 = RnsPoly(ct.c1.data[:k], 1, 0, ct.c1.is_ntt)
         if c0.is_ntt:
             c0 = P.from_ntt(c0, crt)
             c1 = P.from_ntt(c1, crt)

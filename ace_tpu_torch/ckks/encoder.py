@@ -10,6 +10,9 @@ from zero) and signed residues taken canonically mod each prime. Decode
 reconstructs coefficients exactly with Python big ints (centered lift
 mod Q_level) before the float divide — so decode precision is limited
 only by the final double ops, as in the reference.
+
+Limb shard (CrtContext.shard): encode builds this rank's rows only;
+decode gathers every rank's rows in global order first.
 """
 
 from __future__ import annotations
@@ -185,7 +188,8 @@ class Encoder:
         gap = n // (slots * 2)
         message = _llround_interleave(to_scale, delta, n, slots, gap)
         primes = crt.q_primes[:level] + (crt.p_primes if extended else [])
-        data = _signed_to_rns(message, primes)
+        rows = crt.limbs(level, crt.num_p if extended else 0)
+        data = _signed_to_rns(message, crt.select(primes, rows))
         p = RnsPoly(modops.to_torch(data, self.device), level,
                     crt.num_p if extended else 0, False)
         if sf_degree > 1:
@@ -302,7 +306,8 @@ class Encoder:
         values = np.full(slots, value, np.complex128)
         to_scale = self.embedding_inv(values)
         message = _llround_interleave(to_scale, scale, n, slots, 1)
-        data = _signed_to_rns(message, crt.q_primes[:level])
+        data = _signed_to_rns(message, crt.select(crt.q_primes[:level],
+                                                  range(level)))
         p = P.to_ntt(RnsPoly(modops.to_torch(data, self.device), level, 0,
                              False), crt)
         return Plaintext(p, scale, 1, slots)
@@ -323,7 +328,7 @@ class Encoder:
         slots = plain.slots
         gap = (n // 2) // slots
         qs = crt.q_primes[:level]
-        data = modops.to_numpy(poly.data)
+        data = modops.to_numpy(crt.gather_poly(poly))
         idx = np.concatenate([np.arange(slots) * gap,
                               np.arange(slots) * gap + n // 2])
         cols = data[:, idx]  # [level, 2*slots]

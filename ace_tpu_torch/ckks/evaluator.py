@@ -18,6 +18,12 @@ Exact-semantics sources (file:line in the reference):
                      then automorphism of both outputs; 2N-1 conjugates)
   mul_by_monomial:   ckks_evaluator.c:228-256
   bsgs_iter_jit:     ckks_bootstrap_context.c:1237-1383 (Rotate_iteration)
+
+Limb shard (FheContext(mesh=...), CrtContext.shard): every poly holds
+this rank's rows only; the ops below take limb positions from the CRT
+context's helpers (q_rows, local, limbs), never from a global index, so
+the same code runs sharded and unsharded. Communication happens inside
+poly.py's conversions only.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ class Evaluator:
         e1 = kg._small_qp_poly(kg._sample_triangle())
 
         def at_level(p: RnsPoly) -> RnsPoly:
-            return RnsPoly(p.data[:level], level, 0, p.is_ntt)
+            return RnsPoly(p.data[:crt.q_rows(level)], level, 0, p.is_ntt)
 
         pk_b, pk_a = at_level(kg.pk.b), at_level(kg.pk.a)
         c0 = P.add(P.add(P.mul(pk_b, at_level(v), crt), at_level(e0), crt),
@@ -74,23 +80,26 @@ class Evaluator:
     def decrypt(self, ciph: Ciphertext) -> Plaintext:
         crt = self.crt
         level = ciph.level
-        sk = RnsPoly(self.keygen.sk.ntt_sk.data[:level], level, 0, True)
+        sk = RnsPoly(self.keygen.sk.ntt_sk.data[:crt.q_rows(level)], level,
+                     0, True)
         m = P.add(P.mul(ciph.c1, sk, crt), ciph.c0, crt)
         return Plaintext(m, ciph.scaling_factor, ciph.sf_degree, ciph.slots)
 
     # -- linear ops ------------------------------------------------------
 
+    def at_level(self, c: Ciphertext, lv: int) -> Ciphertext:
+        """c with its limbs at and above `lv` dropped (no rescaling)."""
+        if c.level == lv:
+            return c
+        k = self.crt.q_rows(lv)
+        return Ciphertext(RnsPoly(c.c0.data[:k], lv, 0, c.c0.is_ntt),
+                          RnsPoly(c.c1.data[:k], lv, 0, c.c1.is_ntt),
+                          c.scaling_factor, c.sf_degree, c.slots)
+
     def _adjust(self, c1: Ciphertext, c2: Ciphertext):
         """Drop limbs of the higher-level operand (Adjust_level)."""
         lv = min(c1.level, c2.level)
-
-        def cut(c: Ciphertext) -> Ciphertext:
-            if c.level == lv:
-                return c
-            return Ciphertext(RnsPoly(c.c0.data[:lv], lv, 0, c.c0.is_ntt),
-                              RnsPoly(c.c1.data[:lv], lv, 0, c.c1.is_ntt),
-                              c.scaling_factor, c.sf_degree, c.slots)
-        return cut(c1), cut(c2)
+        return self.at_level(c1, lv), self.at_level(c2, lv)
 
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         a, b = self._adjust(a, b)
@@ -130,9 +139,9 @@ class Evaluator:
         contributes c to every slot of c0."""
         c = self._const_int(val, a.sf_degree)
         level = a.level
-        qs = self.crt.q_primes[:level]
-        q, _, _ = self.crt.mod_arrays(range(level))
-        res = self.crt.column([c % qq for qq in qs])
+        idx = self.crt.local(range(level))
+        q, _, _ = self.crt.mod_arrays(idx)
+        res = self.crt.column([c % self.crt.q_primes[g] for g in idx])
         d0 = modops.add_mod(a.c0.data, res, q)
         return Ciphertext(RnsPoly(d0, level, 0, True), a.c1,
                           a.scaling_factor, a.sf_degree, a.slots)
@@ -167,9 +176,9 @@ class Evaluator:
         crt = self.crt
         n = a.c0.degree
         index = power % n
-        vals = [1 if power % (2 * n) < n else q - 1
-                for q in crt.q_primes[:a.level]]
-        data = torch.zeros((a.level, n), dtype=torch.int64,
+        vals = [1 if power % (2 * n) < n else crt.q_primes[g] - 1
+                for g in crt.local(range(a.level))]
+        data = torch.zeros((len(vals), n), dtype=torch.int64,
                            device=a.c0.data.device)
         data[:, index:index + 1] = crt.column(vals)
         mono = P.to_ntt(RnsPoly(data, a.level, 0, False), crt)
@@ -202,8 +211,8 @@ class Evaluator:
         acc0 = acc1 = None
         for part, raised in enumerate(digits):
             def key_at_level(kp: RnsPoly) -> RnsPoly:
-                data = torch.cat([kp.data[:level], kp.data[crt.num_q:]],
-                                 dim=0)
+                data = torch.cat([kp.data[:crt.q_rows(level)],
+                                  kp.data[crt.q_rows(crt.num_q):]], dim=0)
                 return RnsPoly(data, level, crt.num_p, True)
             t0 = P.mul(key_at_level(key.b[part]), raised, crt)
             t1 = P.mul(key_at_level(key.a[part]), raised, crt)
@@ -261,10 +270,7 @@ class Evaluator:
 
     def mod_switch(self, a: Ciphertext) -> Ciphertext:
         """Drop the last limb without scaling (Mod_down_q_primes)."""
-        lv = a.level - 1
-        return Ciphertext(RnsPoly(a.c0.data[:lv], lv, 0, a.c0.is_ntt),
-                          RnsPoly(a.c1.data[:lv], lv, 0, a.c1.is_ntt),
-                          a.scaling_factor, a.sf_degree, a.slots)
+        return self.at_level(a, a.level - 1)
 
     def mod_switch_to_decode_floor(self, a: Ciphertext) -> Ciphertext:
         """Drop residual limbs down to 3 (2 + 2*sf_degree above scale
@@ -333,7 +339,8 @@ class Evaluator:
         scal = [crt.big_p % q for q in crt.q_primes[:poly.num_q]]
         out = P.mul_scalars(poly, scal, crt)
         if ext:
-            zeros = torch.zeros((crt.num_p, poly.degree), dtype=torch.int64,
+            rows = len(crt.local(crt.limbs(0, crt.num_p)))
+            zeros = torch.zeros((rows, poly.degree), dtype=torch.int64,
                                 device=poly.data.device)
             out = RnsPoly(torch.cat([out.data, zeros], dim=0),
                           poly.num_q, crt.num_p, poly.is_ntt)
@@ -354,10 +361,11 @@ class Evaluator:
         """e0's data with P*c0 (c0p, over e0's q limbs) added to its q
         limbs: the key-switched c0 of an ext rotation, before its
         automorphism."""
-        level = e0.num_q
-        q, _, _ = self.crt.mod_arrays(range(level))
-        top = modops.add_mod(e0.data[:level], c0p, q)
-        return torch.cat([top, e0.data[level:]], dim=0)
+        crt = self.crt
+        k = crt.q_rows(e0.num_q)
+        q, _, _ = crt.mod_arrays(crt.local(range(e0.num_q)))
+        top = modops.add_mod(e0.data[:k], c0p, q)
+        return torch.cat([top, e0.data[k:]], dim=0)
 
     def rotate_ext(self, a: Ciphertext, rotation: int, digits=None,
                    add_first: bool = True) -> Ciphertext:
@@ -511,11 +519,12 @@ class Evaluator:
     def _mac_msgs(self, msgs: torch.Tensor, ext0: torch.Tensor,
                   ext1: torch.Tensor, idx: list) -> tuple:
         """(sum_i lift(msgs[i]) * ext0[i], the same for ext1) over the QP
-        limbs `idx`, for R messages [R, N] and exts [R, LK, N]. The R
-        messages are lifted together, NTT'd in one launch over R x LK
-        limbs and multiplied in one launch per component; the products
-        are summed by a pairwise add_mod tree. Residue sums are exact, so
-        this equals ace_tpu's per-message accumulation."""
+        limbs `idx` (the local ones), for R messages [R, N] and exts
+        [R, LK, N]. The R messages are lifted together, NTT'd in one
+        launch over R x LK limbs and multiplied in one launch per
+        component; the products are summed by a pairwise add_mod tree.
+        Residue sums are exact, so this equals ace_tpu's per-message
+        accumulation."""
         crt = self.crt
         qk, muh, mulo = crt.mod_arrays(idx)
         r, n = msgs.shape
@@ -546,7 +555,7 @@ class Evaluator:
             return outs
         crt = self.crt
         level, num_p = ct.level, crt.num_p
-        idx = list(range(level)) + [crt.num_q + j for j in range(num_p)]
+        idx = crt.local(crt.limbs(level, num_p))
         ext0, ext1 = (torch.stack(e) for e in  # [R, LK, N]
                       self._ext_rotations(ct, rots))
         outs = []
@@ -578,7 +587,7 @@ class Evaluator:
         group's MACs are one _mac_msgs call."""
         crt = self.crt
         level, num_p = ct.level, crt.num_p
-        idx = list(range(level)) + [crt.num_q + j for j in range(num_p)]
+        idx = crt.local(crt.limbs(level, num_p))
         ext0, ext1 = (torch.stack(e) for e in  # [g, LK, N]
                       self._ext_rotations(ct, baby_rots))
 

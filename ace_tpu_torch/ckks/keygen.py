@@ -18,6 +18,11 @@ drawn on the key's device from two torch.Generators, each seeded with
 64 bits from `rng`: the XOR of their words makes each key's `a` a
 function of 128 seed bits. It cannot reproduce `ace_tpu`'s jax.random
 bits; tests that compare the packages inject keys (interop.py).
+
+Limb shard (CrtContext.shard): every rank draws the whole of every
+stream above from the same seed, so the ranks agree on every key, and
+computes each key on the limbs it owns only; the rows it holds are those
+of the unsharded key.
 """
 
 from __future__ import annotations
@@ -120,12 +125,13 @@ class KeyGenerator:
                 for q in crt.q_primes + crt.p_primes]
         # fresh uniform values interpreted directly as NTT form
         # (ckks_key_generator.c:159 "skip ntt convert")
-        return RnsPoly(modops.to_torch(np.stack(rows), self.device),
+        return RnsPoly(modops.to_torch(crt.put(np.stack(rows)), self.device),
                        crt.num_q, crt.num_p, True)
 
     def _small_qp_poly(self, samples: np.ndarray, ntt: bool = True) -> RnsPoly:
         crt = self.crt
-        data = _signed_to_rns(samples, crt.q_primes + crt.p_primes)
+        data = _signed_to_rns(samples, crt.select(
+            crt.all_primes, crt.limbs(crt.num_q, crt.num_p)))
         p = RnsPoly(modops.to_torch(data, self.device), crt.num_q,
                     crt.num_p, False)
         return P.to_ntt(p, crt) if ntt else p
@@ -140,10 +146,11 @@ class KeyGenerator:
         crt = self.crt
         a_full = self._sample_uniform_qp()
         # public key lives over Q only (ckks_key_generator.c:100)
-        a = RnsPoly(a_full.data[:crt.num_q], crt.num_q, 0, True)
-        sk_q = RnsPoly(self.sk.ntt_sk.data[:crt.num_q], crt.num_q, 0, True)
+        kq = crt.q_rows(crt.num_q)
+        a = RnsPoly(a_full.data[:kq], crt.num_q, 0, True)
+        sk_q = RnsPoly(self.sk.ntt_sk.data[:kq], crt.num_q, 0, True)
         e = self._small_qp_poly(self._sample_triangle())
-        e_q = RnsPoly(e.data[:crt.num_q], crt.num_q, 0, True)
+        e_q = RnsPoly(e.data[:kq], crt.num_q, 0, True)
         b = P.add(P.neg(P.mul(a, sk_q, crt), crt), e_q, crt)
         return PublicKey(b, a)
 
@@ -208,18 +215,21 @@ class KeyGenerator:
         lk = crt.num_q + crt.num_p
         n = self.params.degree
         e_h = np.stack([self._sample_triangle() for _ in range(parts)])
-        q, mu_hi, mu_lo = crt.mod_arrays(range(lk))
+        idx = crt.local(range(lk))
+        q, mu_hi, mu_lo = crt.mod_arrays(idx)
         # uniform a: a 128-bit uniform word reduced mod q (Barrett-128,
-        # bias <= 2^-67); `a` is a public key component
-        hi, lo = self._uniform_qp_words((parts, lk, n))
+        # bias <= 2^-67); `a` is a public key component. Every limb's
+        # words are drawn; the shard keeps its own
+        hi, lo = (crt.put(w) for w in self._uniform_qp_words((parts, lk, n)))
         a = modops.barrett_reduce_128(hi, lo, q[None], mu_hi[None],
                                       mu_lo[None])
         # the errors' residues (_signed_to_rns) formed on the device, all
         # digits' NTTs in one launch
         e = torch.as_tensor(e_h, device=self.device)[:, None, :]
-        e_rns = torch.where(e < 0, q[None] + e, e).reshape(parts * lk, n)
-        e_ntt = ntt.ntt_fwd(e_rns, crt.tables_for(list(range(lk)) * parts)
-                            ).view(parts, lk, n)
+        e_rns = torch.where(e < 0, q[None] + e, e).reshape(
+            parts * len(idx), n)
+        e_ntt = ntt.ntt_fwd(e_rns, crt.tables_for(idx * parts)
+                            ).view(parts, len(idx), n)
         t = modops.barrett_mul_d(a, old_key.data[None], q[None],
                                  mu_hi[None], mu_lo[None])
         b = modops.add_mod(modops.sub_mod(e_ntt, t, q[None]),

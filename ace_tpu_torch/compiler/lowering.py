@@ -44,6 +44,11 @@ class GraphRunner:
         import time as _time
         from ace_tpu_torch.runtime.timing import TIMING
         be = self.be
+        crt = getattr(getattr(be, "ev", None), "crt", None)
+        if checkpoint and crt is not None and crt.sharded:
+            raise NotImplementedError(
+                "checkpoints hold whole ciphertexts; a limb-sharded run "
+                "(FheContext(mesh=...)) has no checkpoint path")
         env = {self.g.input_name: x}
         start_idx = 0
         if checkpoint and _os.path.exists(checkpoint):

@@ -185,19 +185,10 @@ class FheBackend:
     def rot_sum(self, items):
         """sum_i rot(ct_i, r_i) with a single trailing mod-down per
         chunk of the evaluator's max_bundle rotations."""
-        from ace_tpu_torch.ckks.cipher import Ciphertext
-        from ace_tpu_torch.poly.poly import RnsPoly
         items = [(self._norm(ct), r) for ct, r in items]
         lv = min(ct.level for ct, _ in items)
-
-        def cut(c):
-            if c.level == lv:
-                return c
-            return Ciphertext(RnsPoly(c.c0.data[:lv], lv, 0, c.c0.is_ntt),
-                              RnsPoly(c.c1.data[:lv], lv, 0, c.c1.is_ntt),
-                              c.scaling_factor, c.sf_degree, c.slots)
-
-        return self.ev.rot_sum_jit([(cut(ct), r) for ct, r in items])
+        return self.ev.rot_sum_jit([(self.ev.at_level(ct, lv), r)
+                                    for ct, r in items])
 
     def _pad(self, w):
         vec = np.zeros(self.n_slots, dtype=np.complex128)

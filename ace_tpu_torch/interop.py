@@ -24,10 +24,14 @@ from ace_tpu_torch.ops import modops
 from ace_tpu_torch.poly.poly import RnsPoly
 
 
-def poly(data, num_q: int, num_p: int, is_ntt: bool, device) -> RnsPoly:
-    """Residues [num_q + num_p, N] (uint64) -> RnsPoly on `device`."""
+def poly(data, num_q: int, num_p: int, is_ntt: bool, device,
+         crt=None) -> RnsPoly:
+    """Residues [num_q + num_p, N] (uint64) -> RnsPoly on `device`; with a
+    limb-sharded CRT context `crt`, this rank's rows of them."""
     data = np.asarray(data, dtype=np.uint64)
     assert data.shape[0] == num_q + num_p, (data.shape, num_q, num_p)
+    if crt is not None:
+        data = crt.put(data, crt.limbs(num_q, num_p))
     return RnsPoly(modops.to_torch(data, device), num_q, num_p, is_ntt)
 
 
@@ -41,7 +45,7 @@ def switch_key(b_digits, a_digits, params: CkksParams) -> SwitchKey:
     crt = params.crt
 
     def full(d):
-        return poly(d, crt.num_q, crt.num_p, True, params.device)
+        return poly(d, crt.num_q, crt.num_p, True, params.device, crt)
     return SwitchKey([full(d) for d in b_digits], [full(d) for d in a_digits])
 
 
@@ -65,9 +69,9 @@ def keygen(params: CkksParams, sk_coeffs, sk_ntt, pk_b, pk_a,
     kg.max_rot_keys = 0
     kg.sk = SecretKey(np.asarray(sk_coeffs, dtype=np.int64),
                       poly(sk_ntt, crt.num_q, crt.num_p, True,
-                           params.device))
-    kg.pk = PublicKey(poly(pk_b, crt.num_q, 0, True, params.device),
-                      poly(pk_a, crt.num_q, 0, True, params.device))
+                           params.device, crt))
+    kg.pk = PublicKey(poly(pk_b, crt.num_q, 0, True, params.device, crt),
+                      poly(pk_a, crt.num_q, 0, True, params.device, crt))
     kg.relin_key = switch_key(*relin, params)
     kg._rot_keys = {}
     for _, (auto_idx, b, a) in (rot_keys or {}).items():
@@ -76,11 +80,12 @@ def keygen(params: CkksParams, sk_coeffs, sk_ntt, pk_b, pk_a,
 
 
 def ciphertext(c0, c1, scaling_factor: float, sf_degree: int, slots: int,
-               device, num_p: int = 0) -> Ciphertext:
-    """Ciphertext from its two NTT-form components [level + num_p, N]."""
+               device, num_p: int = 0, crt=None) -> Ciphertext:
+    """Ciphertext from its two NTT-form components [level + num_p, N]
+    (this rank's rows of them under a limb-sharded `crt`)."""
     level = np.asarray(c0).shape[0] - num_p
-    return Ciphertext(poly(c0, level, num_p, True, device),
-                      poly(c1, level, num_p, True, device),
+    return Ciphertext(poly(c0, level, num_p, True, device, crt),
+                      poly(c1, level, num_p, True, device, crt),
                       float(scaling_factor), int(sf_degree), int(slots))
 
 

@@ -17,6 +17,7 @@ Each wrapper takes the plain version (ops/ntt.py ntt_fwd_plain /
 ntt_inv_plain) only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises. `launches` counts wrapper calls that launched the
 kernel (one launch each), `limbs` the limbs those launches transformed.
+Data with no limbs launches nothing.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _prep(x: torch.Tensor, t: "_ntt.NttTables"):
         raise ValueError(f"degree {n} is not a power of two in "
                          f"[2, 2^{LOGN_MAX}]")
     x = x.contiguous()
-    if x.data_ptr() % 16:
+    if x.shape[0] and x.data_ptr() % 16:
         raise ValueError("K3/K4 move data as 16-byte vectors: the tensor "
                          "must start on a 16-byte boundary")
     return x, n.bit_length() - 1
@@ -71,6 +72,8 @@ def ntt4_fwd(coeffs: torch.Tensor, t: "_ntt.NttTables") -> torch.Tensor:
         return _ntt.ntt_fwd_plain(coeffs, t)
     x, logn = _prep(coeffs, t)
     out = torch.empty_like(x)
+    if x.shape[0] == 0:  # a rank's empty limb shard: nothing to launch
+        return out
     from ace_tpu_torch.ops import kernels
     rc = kernels.lib("ntt").ace_k3_ntt_fwd(
         x.data_ptr(), out.data_ptr(), t.rou.data_ptr(),
@@ -89,6 +92,8 @@ def ntt4_inv(values: torch.Tensor, t: "_ntt.NttTables") -> torch.Tensor:
         return _ntt.ntt_inv_plain(values, t)
     x, logn = _prep(values, t)
     out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
     from ace_tpu_torch.ops import kernels
     rc = kernels.lib("ntt").ace_k4_ntt_inv(
         x.data_ptr(), out.data_ptr(), t.rou_inv.data_ptr(),

@@ -8,7 +8,8 @@ csrc/modmul.cu (with csrc/modarith.cuh); their notes give the bound.
 
 Each wrapper takes the plain version (ops/modops.py) only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises. `launches`
-on each wrapper counts kernel launches.
+on each wrapper counts kernel launches. Data with no rows (a rank's
+empty share of a limb-sharded poly) launches nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +63,8 @@ def barrett_mul(a, b, q, mu_hi, mu_lo):
     qs, mh, ml = (_per_row(v, lead) for v in (q, mu_hi, mu_lo))
     out = torch.empty_like(a_)
     rows = a_.numel() >> logn
+    if rows == 0:  # a rank's empty limb shard: nothing to launch
+        return out
     from ace_tpu_torch.ops import kernels
     rc = kernels.lib("modmul").ace_k1_barrett_mul(
         a_.data_ptr(), b_.data_ptr(), qs.data_ptr(), mh.data_ptr(),
@@ -82,6 +85,8 @@ def shoup_mul(x, w, w_prec, q):
     x_ = x.contiguous()
     ws, wps, qs = (_per_row(v, lead) for v in (w, w_prec, q))
     out = torch.empty_like(x_)
+    if x_.numel() == 0:
+        return out
     from ace_tpu_torch.ops import kernels
     rc = kernels.lib("modmul").ace_k2_shoup_mul(
         x_.data_ptr(), ws.data_ptr(), wps.data_ptr(), qs.data_ptr(),

@@ -20,6 +20,15 @@ Exact-semantics sources:
 Kernels: `mul` and mod-down's P^-1 product go through K1
 (modops.barrett_mul_d), `mul_scalars` and rescale's q_l^-1 product
 through K2 (modops.shoup_mul_d), every NTT through K3/K4.
+
+Limb shard (CrtContext.shard): a poly's data holds this rank's rows
+only. Elementwise ops, `mul_scalars`, the NTTs and `automorphism` run on
+them with no communication (the automorphism permutes coefficients, not
+limbs). Only the conversions that contract over limbs communicate, and
+they gather the source rows rather than sum the target rows: mod-up
+gathers its digit's rows, mod-down the P rows, rescale and mod-raise
+take one row from its owner. Each rank then converts into the rows it
+owns, so every row is computed as without the shard.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ class RnsPoly:
 
 
 def _limb_indices(p: RnsPoly, ctx: CrtContext) -> list[int]:
-    return list(range(p.num_q)) + [ctx.num_q + j for j in range(p.num_p)]
+    """Global limbs of p's local rows."""
+    return ctx.local(ctx.limbs(p.num_q, p.num_p))
 
 
 def _mods(p: RnsPoly, ctx: CrtContext):
@@ -96,7 +106,9 @@ def _shoup_cols(ctx: CrtContext, vals, qs):
 
 
 def mul_scalars(a: RnsPoly, scalars: list[int], ctx: CrtContext) -> RnsPoly:
-    """Per-limb constant multiply with Shoup precompute."""
+    """Per-limb constant multiply with Shoup precompute; `scalars` has
+    one entry per limb of a (all of them, the shard picks its own)."""
+    scalars = ctx.select(scalars, ctx.limbs(a.num_q, a.num_p))
     idx = _limb_indices(a, ctx)
     qs = [ctx.all_primes[i] for i in idx]
     w, w_prec = _shoup_cols(ctx, scalars, qs)
@@ -171,7 +183,8 @@ def _base_conv_data(old_data, old_qs: list[int], new_qs: list[int],
     tmp = modops.shoup_mul(old_data, inv, inv_prec, old_q)  # [O, N]
 
     key = ("hatmat", tuple(old_qs), tuple(new_qs), tuple(hat_inv))
-    mat = ctx.const(key, lambda: modops.np_u64(hat_mod_new))  # [new, O]
+    mat = ctx.const(key, lambda: modops.np_u64(hat_mod_new).reshape(
+        len(new_qs), O))  # [new, O]
     acc_hi = torch.zeros((len(new_qs), old_data.shape[-1]), dtype=torch.int64,
                          device=old_data.device)
     acc_lo = torch.zeros_like(acc_hi)
@@ -200,7 +213,8 @@ def decompose(a: RnsPoly, ctx: CrtContext, part_idx: int) -> RnsPoly:
         length = a.num_q - start
     else:
         length = len(ctx.parts[part_idx])
-    return RnsPoly(a.data[start:start + length], length, 0, a.is_ntt)
+    data = a.data[ctx.q_rows(start):ctx.q_rows(start + length)]
+    return RnsPoly(data, length, 0, a.is_ntt)
 
 
 def mod_up(part: RnsPoly, ctx: CrtContext, num_q_live: int,
@@ -215,25 +229,31 @@ def mod_up(part: RnsPoly, ctx: CrtContext, num_q_live: int,
     start = per * part_idx
     sz = part.num_q
     part_qs = ctx.parts[part_idx][:sz]
-    compl_idx = ctx.compl_indices[level][part_idx]
+    digit = range(start, start + sz)
+    compl_all = ctx.compl_indices[level][part_idx]
+    own = [i for i, g in enumerate(compl_all) if ctx.owns(g)]
+    compl_idx = [compl_all[i] for i in own]
     compl_qs = [ctx.all_primes[g] for g in compl_idx]
     hat_inv = ctx.part_hat_inv_mod_q[part_idx][sz - 1]
     # part_hat_mod_compl[level][part][i][j] -> transpose to [compl][part_i]
     mat = ctx.part_hat_mod_compl[level][part_idx]
-    mat_t = [[mat[i][j] for i in range(sz)] for j in range(len(compl_qs))]
+    mat_t = [[mat[i][j] for i in range(sz)] for j in own]
 
     if part.is_ntt:
-        part_tables = ctx.tables_for([start + i for i in range(sz)])
+        part_tables = ctx.tables_for(ctx.local(digit))
         coeff_data = ntt.ntt_inv(part.data, part_tables)
     else:
         coeff_data = part.data
+    # the whole digit, for the conversion into this rank's complement rows
+    coeff_data = ctx.gather(coeff_data, digit)
     ext = _base_conv_data(coeff_data, part_qs, compl_qs, hat_inv, mat_t, ctx)
     if part.is_ntt:
         ext = ntt.ntt_fwd(ext, ctx.tables_for(compl_idx))
 
-    # splice: [ext[:start], original digit, ext[start:]]
+    # splice by global index: [ext below the digit, the digit, ext above]
     # (polynomial.c:916-922 — the digit's own limbs stay untouched)
-    data = torch.cat([ext[:start], part.data, ext[start:]], dim=0)
+    k = ctx.q_rows(start)
+    data = torch.cat([ext[:k], part.data, ext[k:]], dim=0)
     return RnsPoly(data, num_q_live, ctx.num_p, part.is_ntt)
 
 
@@ -241,19 +261,21 @@ def mod_down(a: RnsPoly, ctx: CrtContext) -> RnsPoly:
     """Scale down by P: Q_level ∪ P -> Q_level (polynomial.c:928-966)."""
     assert a.num_p == ctx.num_p
     level = a.num_q
-    p_part = a.data[level:]
+    kq = ctx.q_rows(level)
+    p_part = a.data[kq:]
     p_idx = [ctx.num_q + j for j in range(ctx.num_p)]
     if a.is_ntt:
-        p_part = ntt.ntt_inv(p_part, ctx.tables_for(p_idx))
-    q_list = ctx.q_primes[:level]
+        p_part = ntt.ntt_inv(p_part, ctx.tables_for(ctx.local(p_idx)))
+    p_part = ctx.gather(p_part, p_idx)
+    q_idx = ctx.local(range(level))
     conv = _base_conv_data(
-        p_part, ctx.p_primes, q_list, ctx.p_hat_inv_mod_p,
-        [row for row in ctx.p_hat_mod_q[:level]], ctx)
+        p_part, ctx.p_primes, [ctx.q_primes[g] for g in q_idx],
+        ctx.p_hat_inv_mod_p, [ctx.p_hat_mod_q[g] for g in q_idx], ctx)
     if a.is_ntt:
-        conv = ntt.ntt_fwd(conv, ctx.tables_for(range(level)))
-    q, mu_hi, mu_lo = ctx.mod_arrays(range(level))
-    diff = modops.sub_mod(a.data[:level], conv, q)
-    p_inv = ctx.column(ctx.p_inv_mod_q[:level])
+        conv = ntt.ntt_fwd(conv, ctx.tables_for(q_idx))
+    q, mu_hi, mu_lo = ctx.mod_arrays(q_idx)
+    diff = modops.sub_mod(a.data[:kq], conv, q)
+    p_inv = ctx.column([ctx.p_inv_mod_q[g] for g in q_idx])
     out = modops.barrett_mul_d(diff, p_inv, q, mu_hi, mu_lo)
     return RnsPoly(out, level, 0, a.is_ntt)
 
@@ -280,10 +302,12 @@ def mod_raise(a: RnsPoly, ctx: CrtContext, target_level: int) -> RnsPoly:
     ckks_bootstrap_context.c:1527-1550)."""
     assert not a.is_ntt and a.num_q == 1 and a.num_p == 0
     q0 = ctx.q_primes[0]
-    rest = switch_modulus_data(a.data[:1], q0,
-                               ctx.q_primes[1:target_level], ctx)
-    return RnsPoly(torch.cat([a.data[:1], rest], dim=0), target_level, 0,
-                   False)
+    # limb 0 from its owner; a.data holds it there and nothing elsewhere
+    row0 = ctx.bcast_row(a.data if ctx.owns(0) else None, 0)
+    rest = switch_modulus_data(
+        row0, q0, [ctx.q_primes[g] for g in ctx.local(range(1, target_level))],
+        ctx)
+    return RnsPoly(torch.cat([a.data, rest], dim=0), target_level, 0, False)
 
 
 # ---------------------------------------------------------------------------
@@ -300,19 +324,26 @@ def rescale(a: RnsPoly, ctx: CrtContext) -> RnsPoly:
     last_q = qs[level - 1]
     k = level - 2
 
-    last = ntt.ntt_inv(a.data[level - 1:level], ctx.tables_for([level - 1]))
+    # the dropped limb, from its owner (its last local row there)
+    rem = ctx.q_rows(level - 1)
+    last = None
+    if ctx.owns(level - 1):
+        last = ntt.ntt_inv(a.data[rem:rem + 1], ctx.tables_for([level - 1]))
+    last = ctx.bcast_row(last, level - 1)
 
-    rem = level - 1
-    rem_qs = qs[:rem]
+    rem_idx = ctx.local(range(level - 1))
+    rem_qs = [qs[g] for g in rem_idx]
     # Switch_modulus (fhe_utils.h:352-377), vectorized over target limbs
     sm = switch_modulus_data(last, last_q, rem_qs, ctx)
     new_q = ctx.column(rem_qs)
 
     qlql_w, qlql_prec = _shoup_cols(
-        ctx, ctx.ql_ql_inv_mod_ql_div_ql_mod_qi[k], rem_qs)
+        ctx, [ctx.ql_ql_inv_mod_ql_div_ql_mod_qi[k][g] for g in rem_idx],
+        rem_qs)
     corr = modops.shoup_mul(sm, qlql_w, qlql_prec, new_q)
-    corr = ntt.ntt_fwd(corr, ctx.tables_for(range(rem)))
+    corr = ntt.ntt_fwd(corr, ctx.tables_for(rem_idx))
 
-    inv_w, inv_prec = _shoup_cols(ctx, ctx.ql_inv_mod_qi[k], rem_qs)
+    inv_w, inv_prec = _shoup_cols(
+        ctx, [ctx.ql_inv_mod_qi[k][g] for g in rem_idx], rem_qs)
     scaled = modops.shoup_mul_d(a.data[:rem], inv_w, inv_prec, new_q)
-    return RnsPoly(modops.add_mod(scaled, corr, new_q), rem, 0, True)
+    return RnsPoly(modops.add_mod(scaled, corr, new_q), level - 1, 0, True)

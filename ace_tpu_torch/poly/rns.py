@@ -15,6 +15,15 @@ Semantics replicated exactly (same prime chains, same tables):
                              per fhe_types.h:28)
   - Precompute_qpart_new_base: crt.c:426-533 (per-level digit hat tables and
                              complement bases)
+
+The limb shard. `shard(mesh)` puts the context on a parallel.mesh
+LimbMesh: every RnsPoly of the context then holds only this rank's rows,
+the limbs g (q_i is g = i, p_j is g = num_q + j) with g mod n_limb equal
+to the rank's limb coordinate, in ascending global order. Every [:level]
+prefix of the chain is then a prefix of the local rows (`q_rows`), so a
+rescale or a level drop moves no data. The helpers below (`limbs`,
+`local`, `q_rows`, `select`, `put`, `gather`, `bcast_row`) are the
+identity without a mesh, so one code path serves both cases.
 """
 
 from __future__ import annotations
@@ -47,8 +56,12 @@ class CrtContext:
     """
 
     def __init__(self, num_q: int, first_mod_size: int, scaling_mod_size: int,
-                 degree: int, num_q_parts: int, device="cpu"):
-        self.device = torch.device(device)
+                 degree: int, num_q_parts: int, device=None):
+        """device: None is the card (and raises without one); pass "cpu"
+        for the plain versions."""
+        from ace_tpu_torch import resolve_device
+        self.device = resolve_device(device)
+        self.mesh = None  # a LimbMesh once shard() is called
         self.degree = degree
         self.num_q = num_q
         self.num_q_parts = num_q_parts
@@ -114,7 +127,7 @@ class CrtContext:
         """Python ints -> cached [len, 1] int64 column on the device."""
         vals = tuple(int(v) for v in vals)
         return self.const(("col", vals),
-                          lambda: modops.np_u64([[v] for v in vals]))
+                          lambda: modops.np_u64(vals).reshape(-1, 1))
 
     def mod_arrays(self, idx) -> tuple:
         """(q, mu_hi, mu_lo) tensors [len(idx), 1] for global limbs idx."""
@@ -136,6 +149,96 @@ class CrtContext:
                 np.asarray(nt.precompute_auto_order(auto_idx, self.degree),
                            dtype=np.int64), device=self.device)
         return self._auto_order_cache[key]
+
+    # -- limb shard ---------------------------------------------------------
+
+    def shard(self, mesh) -> None:
+        """Limb-shard every poly of this context over `mesh` (a
+        parallel.mesh.LimbMesh). A context is sharded once, before any
+        poly of it is made."""
+        if self.mesh is not None and self.mesh is not mesh:
+            raise ValueError("this CRT context is already sharded over "
+                             "another mesh")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device}, CRT context on "
+                             f"{self.device}")
+        self.mesh = mesh
+
+    @property
+    def sharded(self) -> bool:
+        """True when polys hold a strict subset of their limbs."""
+        return self.mesh is not None and self.mesh.n_limb > 1
+
+    def limbs(self, num_q: int, num_p: int) -> list:
+        """Global limb indices of a poly over q_0..q_{num_q-1} and
+        p_0..p_{num_p-1}."""
+        return list(range(num_q)) + [self.num_q + j for j in range(num_p)]
+
+    def owns(self, g: int) -> bool:
+        return not self.sharded or self.mesh.owns(g)
+
+    def local(self, rows) -> list:
+        """The global limbs of `rows` that this rank holds, in order."""
+        return [g for g in rows if self.owns(g)]
+
+    def select(self, vals, rows) -> list:
+        """The entries of `vals` (one per global limb of `rows`) at the
+        limbs this rank holds."""
+        vals = list(vals)
+        assert len(vals) == len(rows), (len(vals), len(rows))
+        return [v for v, g in zip(vals, rows) if self.owns(g)]
+
+    def q_rows(self, level: int) -> int:
+        """Local rows of the q limbs below `level`: the length of the
+        local prefix that the chain's [:level] prefix is."""
+        if not self.sharded:
+            return level
+        n, r = self.mesh.n_limb, self.mesh.limb
+        return max(0, (level - r + n - 1) // n)
+
+    def put(self, data, rows=None):
+        """This rank's rows of `data` [..., len(rows), N] (global limbs
+        `rows`, default 0..L-1): parallel.mesh.put_limb."""
+        if not self.sharded:
+            return data
+        from ace_tpu_torch.parallel.mesh import put_limb
+        return put_limb(data, self.mesh, rows)
+
+    def gather(self, data: torch.Tensor, rows) -> torch.Tensor:
+        """All of [len(rows), N] in `rows`' order from every limb rank's
+        local rows `data` (the rows it owns, in order): one all-gather
+        over the limb axis."""
+        if not self.sharded:
+            return data
+        rows = list(rows)
+        n = self.mesh.n_limb
+        counts = [0] * n
+        pos = []
+        for g in rows:
+            pos.append((g % n, counts[g % n]))
+            counts[g % n] += 1
+        m = max(counts)
+        if m == 0:
+            return data
+        parts = self.mesh.all_gather_limb(data, m)     # [n, m, N]
+        flat = parts.reshape(n * m, *parts.shape[2:])
+        idx = torch.as_tensor([r * m + i for r, i in pos], dtype=torch.int64,
+                              device=flat.device)
+        return flat.index_select(0, idx)
+
+    def gather_poly(self, p) -> torch.Tensor:
+        """All residues [num_q + num_p, N] of RnsPoly p in global order."""
+        return self.gather(p.data, self.limbs(p.num_q, p.num_p))
+
+    def bcast_row(self, row, g: int) -> torch.Tensor:
+        """Limb g's row [1, N]: `row` on its owner (None elsewhere), sent
+        to every limb rank."""
+        if not self.sharded:
+            return row
+        if row is None:
+            row = torch.empty((1, self.degree), dtype=torch.int64,
+                              device=self.device)
+        return self.mesh.broadcast_limb(row, g % self.mesh.n_limb)
 
     # -- precomputes -------------------------------------------------------
 

@@ -4,9 +4,10 @@ The FheContext of `ace_tpu.runtime.context` (the reference's rtlib
 context.c Prepare_context:29-86 plus the io_api client/server split):
 the *client* holds the secret key and does encode/encrypt/decrypt on the
 host; the *server* holds only evaluation keys and runs the encrypted
-graph on the device, bootstrapping included. `digit_mesh` routes the
-key switches through the SPMD evaluator (parallel/spmd_eval.py); the
-JAX package's limb-sharded `mesh` option has no counterpart yet.
+graph on the device, bootstrapping included. `mesh` limb-shards keys,
+plaintexts and ciphertexts over a ('dp', 'limb') process mesh
+(CrtContext.shard); `digit_mesh` routes the key switches through the
+SPMD evaluator (parallel/spmd_eval.py).
 """
 
 from __future__ import annotations
@@ -22,18 +23,28 @@ class FheContext:
 
     def __init__(self, params: CkksParams = None, *, scheme_info=None,
                  seed: int = 0, max_rot_keys: int = 0,
-                 rot_key_budget_bytes: int = 0, device=None,
+                 rot_key_budget_bytes: int = 0, device=None, mesh=None,
                  digit_mesh=None):
         """device: None runs on the card (and raises without one);
         "cpu" runs the plain versions. Ignored when `params` is given
         (its CRT context fixes the device).
+        mesh: this rank's parallel.mesh.LimbMesh (make_mesh); the CRT
+        context is sharded over its limb axis before any key is made,
+        so every rank holds and computes its own limbs of every key,
+        plaintext and ciphertext (the counterpart of ace_tpu's put_limb
+        residency). Every rank of the world runs the same program on the
+        same seed; the dp rows hold the same keys.
         digit_mesh: this rank's parallel.mesh.DigitSlotMesh; rotate, mul
         and relinearize then go through the SPMD evaluator
-        (parallel/spmd_eval.py) with per-digit key residency."""
+        (parallel/spmd_eval.py) with per-digit key residency. It does
+        not combine with `mesh` (ace_tpu never runs the two together)."""
         from ace_tpu_torch.ckks.encoder import Encoder
         from ace_tpu_torch.ckks.keygen import KeyGenerator
         from ace_tpu_torch.ckks.evaluator import Evaluator
 
+        if mesh is not None and digit_mesh is not None:
+            raise ValueError("FheContext takes a limb mesh or a digit mesh, "
+                             "not both")
         if params is None:
             si = scheme_info
             params = CkksParams(
@@ -44,6 +55,9 @@ class FheContext:
                 num_q_parts=si.q_part_num, device=device)
         self.params = params
         self.device = params.device
+        self.mesh = mesh
+        if mesh is not None:
+            params.crt.shard(mesh)
         if rot_key_budget_bytes and not max_rot_keys:
             # size the rotation-key LRU from the per-key bytes of the key
             # structure (context.c:100-107)
@@ -70,13 +84,16 @@ class FheContext:
 
     def hbm_plan(self) -> str:
         """Static device-memory budget report (the analog of the
-        reference's key/weight memory report, rtlib context.c:100-116)."""
+        reference's key/weight memory report, rtlib context.c:100-116);
+        under a limb mesh, this rank's share (its rows of each key and
+        workspace)."""
         from ace_tpu_torch.ckks.keygen import switch_key_nbytes
         p = self.params
         n = p.degree
         L = p.crt.num_q
         K = p.crt.num_p
-        key_b = switch_key_nbytes(p)
+        lk = len(p.crt.local(range(L + K)))
+        key_b = switch_key_nbytes(p) * lk // (L + K)
         n_keys = self.keygen.max_rot_keys or 0
         keys = n_keys * key_b
         msg_budget = self.encoder._msg_cache_budget
@@ -84,7 +101,7 @@ class FheContext:
         bundle = self.evaluator.max_bundle_msg
         # peak bundle workspace: R keyswitch exts (2 polys, L+K limbs)
         # + R key digit planes + one group's MAC transients
-        row = (L + K) * n * 8
+        row = lk * n * 8
         exts = bundle * 2 * row
         kdig = bundle * 2 * p.crt.num_decomp(L) * row
         work = exts + kdig + 4 * row

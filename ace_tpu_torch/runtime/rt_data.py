@@ -208,7 +208,8 @@ class PtManager:
                     f"(level={lv}, sf_degree={ent['sf_degree']}) but "
                     f"requested (level={level}, sf_degree={sf_degree}); "
                     f"re-run compile-time encoding at the right level")
-            data = to_torch(arr.reshape(lv, -1), self.encoder.device)
+            data = to_torch(self.encoder.params.crt.put(arr.reshape(lv, -1)),
+                            self.encoder.device)
             pt = Plaintext(RnsPoly(data, lv, 0, True), ent["scale"],
                            ent["sf_degree"], ent["len"])
         else:

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Nine phases; any failure exits non-zero and prints no result line.
+Ten phases (9d after 9); any failure exits non-zero and prints no
+result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -53,6 +54,12 @@ Nine phases; any failure exits non-zero and prints no result line.
      through FheContext(digit_mesh=...) on a 3 x 1 world, equal to phase
      4's output residues; one rotate on a one-rank NCCL world. The
      kernel rows' `launches_spmd` count 9a-9b over all ranks.
+ 9d. the limb-sharded evaluator (FheContext(mesh=...), see phase_limb)
+     on a 2 x 2 (dp x limb) world sharing the card through gloo: each dp
+     row's rotate, mul, rescale and hoisted MAC bundle on its own message
+     at level 34, bit-identical to the single-device Evaluator, and phase
+     4's model, equal to phase 4's output residues; every rank launches
+     K1-K4. The kernel rows' `launches_limb` count 9d over all ranks.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -1344,12 +1351,15 @@ def spmd_expect(msg) -> dict:
             "conv": load_script("torch_multichip").conv_plain(msg)}
 
 
-def _digest(ct) -> str:
+def _digest(ct, crt=None) -> str:
+    """sha256 of ct's residues; with a limb-sharded CRT context `crt`,
+    of every limb gathered in global order (a collective)."""
     import hashlib
     from ace_tpu_torch.ops import modops
     h = hashlib.sha256()
     for p in (ct.c0, ct.c1):
-        h.update(modops.to_numpy(p.data).tobytes())
+        data = p.data if crt is None else crt.gather_poly(p)
+        h.update(modops.to_numpy(data).tobytes())
     return h.hexdigest()
 
 
@@ -1625,6 +1635,214 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
     return {"launches_spmd": launches, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9d: the limb-sharded evaluator on a dp x limb world
+# ---------------------------------------------------------------------------
+
+LIMB_DP, LIMB_N = 2, 2     # 9d: 2 x 2 ranks sharing the card
+LIMB_ROT = 3
+LIMB_MAC_ROTS = (1, 2, 5)
+
+
+def limb_msg(kw: dict, dp: int):
+    """9d's message of dp row `dp` (each row runs its own)."""
+    return np.random.default_rng(SEED + 90 + dp).uniform(
+        -1, 1, kw["degree"] // 2)
+
+
+def limb_ops(ctx, msg) -> dict:
+    """9d (i) on msg encrypted at the top level: rotate by LIMB_ROT,
+    mul + relinearize, rescale, and FheBackend.rot_ext_mac_groups over
+    LIMB_MAC_ROTS (the conv path's bundle) at the top level."""
+    from ace_tpu_torch.compiler.packing import FheBackend
+    ev = ctx.evaluator
+    ct = ctx.prepare_input(msg, "x")
+    m = ev.mul(ct, ct)
+    w = np.ones(ctx.params.degree // 2)
+    be = FheBackend(ev, ctx.encoder)
+    return {"rotate": ev.rotate(ct, LIMB_ROT), "mul": m,
+            "rescale": ev.rescale(m),
+            "mac": be.rot_ext_mac_groups(ct, list(LIMB_MAC_ROTS),
+                                         [[w, w, None]])[0]}
+
+
+def limb_expect(msg) -> dict:
+    return {"rotate": np.roll(msg, -LIMB_ROT), "mul": msg ** 2,
+            "rescale": msg ** 2, "mac": np.roll(msg, -1) + np.roll(msg, -2)}
+
+
+def rank_limb(mesh, kw, sm, want, t_spawn):
+    """9d on one rank: (i) limb_ops on its dp row's message through
+    FheContext(mesh=mesh), (ii) phase 4's model through compile_model
+    and infer_encrypted with FheContext(mesh=mesh); the gathered
+    residues' digests (i) and equality with phase 4's (ii)."""
+    from ace_tpu_torch.ckks.keygen import switch_key_nbytes
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.ops import modops, reset_counters
+    from ace_tpu_torch.runtime.context import FheContext
+    res = _rank_enter(mesh, t_spawn)
+    sync = syncer(mesh.device)
+    t0 = time.perf_counter()
+    ctx = FheContext(CkksParams(**kw, device=mesh.device), seed=SEED,
+                     mesh=mesh)
+    sync()
+    res["setup_s"] = time.perf_counter() - t0
+    crt = ctx.params.crt
+    res["rows"] = crt.local(range(crt.num_q + crt.num_p))
+    res["key_b"] = ctx.keygen.relin_key.nbytes
+    res["key_total_b"] = switch_key_nbytes(ctx.params)
+    reset_counters()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    outs = limb_ops(ctx, limb_msg(kw, mesh.dp))
+    sync()
+    res["ops_s"] = time.perf_counter() - t0
+    res["ops_mesh"] = mesh.stats()
+    res["digests"] = {k: _digest(v, crt) for k, v in outs.items()}
+    res["keys_b"] = ctx.key_memory_bytes()  # relin + the four rotations
+    del ctx, outs
+    t0 = time.perf_counter()
+    mctx = FheContext(scheme_info=sm["info"], max_rot_keys=100,
+                      device=mesh.device, mesh=mesh)
+    model = M.compile_model(sm["graph"], sm["cfg"], ctx=mctx,
+                            num_classes=sm["out_len"])
+    sync()
+    res["model_setup_s"] = time.perf_counter() - t0
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    M.infer_encrypted(model, sm["img"])
+    sync()
+    res["inference_s"] = time.perf_counter() - t0
+    ct = mctx.get_output_data("output")
+    crt = mctx.params.crt
+    res["level"] = ct.level
+    res["equal"] = all(
+        np.array_equal(modops.to_numpy(crt.gather_poly(p)), w)
+        for p, w in zip((ct.c0, ct.c1), want))
+    res["model_keys_b"] = mctx.key_memory_bytes()
+    return _rank_exit(mesh, res)
+
+
+def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
+               want=None) -> dict:
+    """The limb-sharded evaluator (FheContext(mesh=...), CrtContext.shard)
+    on a LIMB_DP x LIMB_N gloo world whose ranks share the card (gloo
+    stages each gather and broadcast through the host):
+      i. each dp row runs limb_ops on its own message at ResNet-20's ring
+         and chain; every rank's gathered residues must equal the
+         single-device Evaluator's on that message under the same seeded
+         keys, which decode within SPMD_TOL;
+      ii. each dp row runs `sm` (phase 4's model) through compile_model
+         and infer_encrypted; the gathered output residues must equal
+         `want` (phase 4's);
+      iii. on the card, every rank must launch K1, K2, K3 and K4.
+    Each rank holds its own limbs only (limb g on limb rank g mod
+    LIMB_N), so its bytes of each key are its rows' share of
+    switch_key_nbytes. Returns the launches of i-ii summed over the
+    ranks, the smallest per rank, and the seconds.
+    device=None is the card; "cpu" rehearses it on gloo."""
+    import torch
+    from ace_tpu_torch import resolve_device
+    from ace_tpu_torch.ckks.params import CkksParams
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.parallel.mesh import (DP_LIMB, file_rendezvous,
+                                             run_world)
+    from ace_tpu_torch.runtime.context import FheContext
+
+    dev = resolve_device(device)
+    kw = kw or spmd_kw()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.empty_cache()
+    sync = syncer(dev)
+    tag = "[phase 9d]"
+    secs = {}
+    t0 = time.perf_counter()
+    with file_rendezvous(kernels.build_dir()) as rdv:
+        ranks = run_world(rank_limb, LIMB_DP, LIMB_N, "gloo", str(dev), rdv,
+                          (kw, sm, want, time.time()), axes=DP_LIMB)
+    secs["9d"] = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        m, mo = res["mesh"], res["ops_mesh"]
+        rows = res["rows"]
+        log(f"{tag} rank {r} (dp {r // LIMB_N}, limb {r % LIMB_N}): "
+            f"imported {res['import_s']:.1f} s, process group "
+            f"{res['group_s']:.1f} s, CUDA context {res['context_s']:.1f} s "
+            f"after spawn; owns {len(rows)} of {kw['num_q']} + P limbs "
+            f"({rows[0]}, {rows[1]}, ..., {rows[-1]}); relinearization key "
+            f"{res['key_b']} B of switch_key_nbytes {res['key_total_b']} B;"
+            f" keys of i {res['keys_b']} B, of ii {res['model_keys_b']} B; "
+            f"setup {res['setup_s']:.2f} s, ops {res['ops_s']:.2f} s "
+            f"({mo['collectives']} collectives {mo['collective_s']:.2f} s, "
+            f"staged {mo['staged_bytes']} B in {mo['staged_s']:.2f} s); "
+            f"model setup {res['model_setup_s']:.2f} s, inference "
+            f"{res['inference_s']:.2f} s ({m['collectives']} collectives "
+            f"{m['collective_s']:.2f} s, staged {m['staged_bytes']} B in "
+            f"{m['staged_s']:.2f} s); device memory allocated "
+            f"{res['allocated_b']} B, peak {res['max_allocated_b']} B; "
+            f"launches {res['launches']}")
+    # i. against the single-device evaluator, one context per dp row
+    t0 = time.perf_counter()
+    errs = {}
+    for dp in range(LIMB_DP):
+        ctx = FheContext(CkksParams(**kw, device=dev), seed=SEED)
+        msg = limb_msg(kw, dp)
+        ref = limb_ops(ctx, msg)
+        sync()
+        want_i = {k: _digest(v) for k, v in ref.items()}
+        bad = [r for r, res in enumerate(ranks)
+               if r // LIMB_N == dp and res["digests"] != want_i]
+        if bad:
+            raise AssertionError(f"{tag} ranks {bad} (dp row {dp}) differ "
+                                 f"from the single-device Evaluator")
+        plain = limb_expect(msg)
+        for k, v in ref.items():
+            ctx.set_output_data(k, v)
+            errs[f"{k}{dp}"] = float(np.max(np.abs(
+                ctx.handle_output(k, 64) - plain[k][:64])))
+        del ctx, ref
+    secs["9d_single"] = time.perf_counter() - t0
+    if not max(errs.values()) <= SPMD_TOL:
+        raise AssertionError(f"{tag} decode errors {errs}")
+    if ranks[0]["digests"] == ranks[LIMB_N]["digests"]:
+        raise AssertionError(f"{tag} the dp rows' outputs agree: the rows "
+                             f"did not run their own messages")
+    log(f"{tag} i: {len(ranks)} ranks ({LIMB_DP} x {LIMB_N}), each dp row "
+        f"bit-identical to the single-device Evaluator on its message "
+        f"({secs['9d_single']:.2f} s for both alone) for rotate, mul, "
+        f"rescale and rot_ext_mac_groups{list(LIMB_MAC_ROTS)}; max decode "
+        f"errors {errs} (limit {SPMD_TOL})")
+    # each rank holds its rows' share of the key, the limb ranks all of it
+    lk = sum(len(res["rows"]) for res in ranks[:LIMB_N])
+    for r, res in enumerate(ranks):
+        if res["key_b"] * lk != res["key_total_b"] * len(res["rows"]):
+            raise AssertionError(f"{tag} rank {r} holds {res['key_b']} B of "
+                                 f"a key, not {len(res['rows'])}/{lk} of "
+                                 f"{res['key_total_b']}")
+    if sum(res["key_b"] for res in ranks[:LIMB_N]) != ranks[0]["key_total_b"]:
+        raise AssertionError(f"{tag} the limb ranks' key bytes do not add "
+                             f"up to switch_key_nbytes")
+    # ii.
+    if not all(res["equal"] for res in ranks):
+        raise AssertionError(f"{tag} ii: output residues differ from phase "
+                             f"4's: {[res['equal'] for res in ranks]}")
+    log(f"{tag} ii: every rank's gathered output (level {ranks[0]['level']})"
+        f" equal to phase 4's residue for residue; world {secs['9d']:.1f} s")
+    # iii.
+    if dev.type == "cuda":
+        idle = {r: [k for k, v in res["launches"].items() if v == 0]
+                for r, res in enumerate(ranks)}
+        if any(idle.values()):
+            raise AssertionError(f"{tag} kernels not launched on every "
+                                 f"rank: {idle}")
+    names = sorted(ranks[0]["launches"])
+    return {"launches_limb": dict(ranks[0]["launches_world"]),
+            "launches_min": {k: min(res["launches"][k] for res in ranks)
+                             for k in names},
+            "seconds": secs}
+
+
 def main() -> int:
     try:
         import torch
@@ -1727,6 +1945,14 @@ def main() -> int:
             f" s, 9b {spmd['seconds']['9b']:.1f} s, 9c "
             f"{spmd['seconds']['9c']:.1f} s; launches in 9a-9b over all "
             f"ranks {spmd['launches_spmd']}")
+        limb = phase_limb(sm=sm, want=res["residues"])
+        lap("9d")
+        for r in rows:
+            r["launches_limb"] = limb["launches_limb"][r["name"].split()[0]]
+        log(f"[summary] limb-sharded evaluator: world 9d "
+            f"{limb['seconds']['9d']:.1f} s; launches in 9d over all ranks "
+            f"{limb['launches_limb']}, fewest on a rank "
+            f"{limb['launches_min']}")
         log("[summary] phase seconds " + ", ".join(
             f"{k}: {v:.1f}" for k, v in secs.items())
             + f"; script {time.perf_counter() - t_start:.1f} s on "

@@ -1,11 +1,27 @@
 #!/usr/bin/env python3
-"""The port's digit x slot SPMD key switch through the model path, on a
-world of ranks: ace_tpu's __graft_entry__.dryrun_multichip phases 2-5 on
-torch.distributed, at their own sizes, each held bit-exact against the
-single-device port.
+"""ace_tpu's __graft_entry__.dryrun_multichip on torch.distributed, on
+worlds of ranks, each phase held bit-exact against the single-device
+port: phase 1 and a bootstrap on a dp x limb world (the limb-sharded
+evaluator, FheContext(mesh=...)), phases 2-5 on a digit x slot world (the
+SPMD key switch, FheContext(digit_mesh=...)).
 
     python3 scripts/torch_multichip.py --digits 3 --slots 2
+    python3 scripts/torch_multichip.py --dp 2 --limb 2
         [--backend gloo|nccl] [--device cuda:0|cpu] [--degree N]
+
+--dp/--limb run the dp x limb world, --digits/--slots the digit x slot
+world; given both, both run; given neither, the digit x slot world of
+2 x 2 runs. On the dp x limb world (3 q parts):
+  1. the dry run's step: a batch of one ciphertext per dp row, with a
+     different message on each (encrypted by the parent, which holds the
+     same seeded keys), enters the ranks through put_limb(batched=True);
+     each dp row computes rescale(mul_plain(add(rotate(c, 1), c), 0.5))
+     at N = 2^13, 12 q primes, seed 5; each row's gathered residues must
+     equal the single-device step on its message.
+  4L. phase 4's bootstrap below through FheContext(mesh=...), every rank
+     encrypting the message itself; gathered, bit-identical to the
+     single-device bootstrap.
+On the digit x slot world:
 
   2. one SpmdKeySwitch rotate (by 7) at N = 2^13, 12 q primes, seed 5;
      decodes to roll(m, -7) within 1e-2.
@@ -27,8 +43,7 @@ phase must take at least one SPMD key switch, and any failure exits
 non-zero. --device is every rank's device under gloo (the default: the
 card, all ranks sharing cuda:0; "cpu" runs the plain versions); under
 nccl rank r runs on cuda:r. --degree N runs every phase at ring degree N
-(a rehearsal on the CPU: --degree 1024). Phase 1 of the dry run (dp x
-limb under GSPMD) has no counterpart yet.
+(a rehearsal on the CPU: --degree 1024).
 """
 
 from __future__ import annotations
@@ -54,21 +69,84 @@ def _params(degree, num_q, digits, hw, device):
 
 
 def _ctx(params, seed, mesh):
+    """A context on `mesh`: a LimbMesh shards it (mesh=), a DigitSlotMesh
+    routes its key switches (digit_mesh=)."""
+    from ace_tpu_torch.parallel.mesh import LimbMesh
     from ace_tpu_torch.runtime.context import FheContext
+    if isinstance(mesh, LimbMesh):
+        return FheContext(params, seed=seed, mesh=mesh)
     return FheContext(params, seed=seed, digit_mesh=mesh)
 
 
 def _result(ctx, out, length, switches=0):
+    """out's residues (every limb, gathered under a limb mesh), its
+    decode and level."""
     from ace_tpu_torch.ops import modops
+    crt = ctx.params.crt
     ctx.set_output_data("y", out)
-    return {"c0": modops.to_numpy(out.c0.data),
-            "c1": modops.to_numpy(out.c1.data),
+    return {"c0": modops.to_numpy(crt.gather_poly(out.c0)),
+            "c1": modops.to_numpy(crt.gather_poly(out.c1)),
             "decoded": ctx.handle_output("y", length), "level": out.level,
-            "switches": switches}
+            "switches": switches,
+            "key_bytes": sum(k.nbytes for k in ctx.keygen.all_keys())}
 
 
 def _switches(ctx) -> int:
     return getattr(ctx.evaluator, "spmd_switches", 0)
+
+
+DRY_PARTS = 3  # the dp x limb world's q parts (ResNet-20's)
+
+
+def dry_messages(n, n_dp):
+    """One message per dp row."""
+    return [np.linspace(-1, 1, n // 2) * (0.5 + i) / 2 for i in range(n_dp)]
+
+
+def _dry_ctx(n, device, mesh):
+    """Phase 1's context, its rotation key made before any encryption
+    (so the parent's encryptions leave the ranks' keys as the parent's)."""
+    ctx = _ctx(_params(n, 12, DRY_PARTS, 32, device), 5, mesh)
+    ctx.keygen.rot_key(1)
+    return ctx
+
+
+def dry_step(ctx, ct):
+    """The dry run's step (__graft_entry__.dryrun_multichip, one_image)."""
+    ev = ctx.evaluator
+    w = ctx.encoder.encode(np.full(ctx.params.degree // 2, 0.5,
+                                   np.complex128), level=ct.level)
+    return ev.rescale(ev.mul_plain(ev.add(ev.rotate(ct, 1), ct), w))
+
+
+def dry_batch(n, n_dp, device) -> dict:
+    """The single-device side of phase 1: the batch of ciphertexts (one
+    per dp row, [n_dp, L, N] uint64 per component) and each row's step."""
+    from ace_tpu_torch.ops import modops
+    ctx = _dry_ctx(n, device, None)
+    cts = [ctx.prepare_input(m, f"x{i}")
+           for i, m in enumerate(dry_messages(n, n_dp))]
+    ct = cts[0]
+    return {"batch": [np.stack([modops.to_numpy(getattr(c, k).data)
+                                for c in cts]) for k in ("c0", "c1")],
+            "meta": (ct.level, ct.scaling_factor, ct.sf_degree, ct.slots),
+            "rows": [_result(ctx, dry_step(ctx, c), 64) for c in cts]}
+
+
+def phase_dry(n, mesh, batch, meta) -> dict:
+    """Phase 1 on this rank: its dp row's ciphertext of the batch,
+    limb-sharded by put_limb(batched=True), through the step."""
+    from ace_tpu_torch.ckks.cipher import Ciphertext
+    from ace_tpu_torch.ops import modops
+    from ace_tpu_torch.parallel.mesh import put_limb
+    from ace_tpu_torch.poly.poly import RnsPoly
+    ctx = _dry_ctx(n, mesh.device, mesh)
+    level, *rest = meta
+    rows = ctx.params.crt.limbs(level, 0)
+    c0, c1 = (RnsPoly(put_limb(modops.to_torch(b, mesh.device), mesh, rows,
+                               batched=True)[0], level, 0, True)
+              for b in batch)
+    return _result(ctx, dry_step(ctx, Ciphertext(c0, c1, *rest)), 64)
 
 
 def phase_keyswitch(n, digits, device, mesh=None) -> dict:
@@ -198,42 +276,84 @@ PHASES = {
 }
 
 
-def on_rank(mesh, degree: int) -> dict:
-    """Every phase through the mesh on this rank; rank 0 prints."""
+DRY_N = 1 << 13
+LIMB_PHASES = {1: "dp x limb step", "4L": "limb-mesh bootstrap"}
+
+
+def _timed(mesh, k, name, n, fn) -> dict:
+    """fn() on this rank with its launches, collectives and seconds;
+    rank 0 prints."""
     from ace_tpu_torch.ops import read_counters, reset_counters
-    out = {}
-    for k, (name, fn, _, n) in PHASES.items():
-        reset_counters()
-        mesh.reset_stats()
-        t0 = time.perf_counter()
-        r = fn(degree or n, mesh.num_digits, mesh.device, mesh)
-        r.update(seconds=time.perf_counter() - t0, mesh=mesh.stats(),
-                 launches=read_counters())
-        out[k] = r
-        if mesh.rank == 0:
-            print(f"[phase {k}] rank 0: {name} at N = {degree or n}, "
-                  f"level {r['level']}: {r['seconds']:.2f} s, "
-                  f"{r['switches']} SPMD key switches, collectives "
-                  f"{json.dumps(r['mesh'])}, launches {r['launches']}",
-                  flush=True)
-    return out
+    reset_counters()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    r = fn()
+    r.update(seconds=time.perf_counter() - t0, mesh=mesh.stats(),
+             launches=read_counters())
+    if mesh.rank == 0:
+        print(f"[phase {k}] rank 0: {name} at N = {n}, level "
+              f"{r['level']}: {r['seconds']:.2f} s, {r['switches']} SPMD "
+              f"key switches, key bytes held {r['key_bytes']}, collectives "
+              f"{json.dumps(r['mesh'])}, launches {r['launches']}",
+              flush=True)
+    return r
 
 
-def check(k: int, ref: dict, ranks: list, degree: int) -> list:
-    """Failures of phase k: residues against the single-device result,
-    the decoded values against the plain expectation, and the SPMD key
-    switches taken."""
-    name, _, expect, n = PHASES[k]
+def on_rank(mesh, degree: int) -> dict:
+    """Every digit x slot phase through the mesh on this rank."""
+    return {k: _timed(mesh, k, name, degree or n,
+                      lambda: fn(degree or n, mesh.num_digits, mesh.device,
+                                 mesh))
+            for k, (name, fn, _, n) in PHASES.items()}
+
+
+def on_limb_rank(mesh, degree: int, batch, meta) -> dict:
+    """Phases 1 and 4L through the limb mesh on this rank."""
+    n1, n4 = degree or DRY_N, degree or PHASES[4][3]
+    return {1: _timed(mesh, 1, LIMB_PHASES[1], n1,
+                      lambda: phase_dry(n1, mesh, batch, meta)),
+            "4L": _timed(mesh, "4L", LIMB_PHASES["4L"], n4,
+                         lambda: phase_bootstrap(n4, DRY_PARTS, mesh.device,
+                                                 mesh))}
+
+
+def check(k, ref, ranks: list, degree: int) -> list:
+    """Failures of phase k: residues against the single-device result
+    (`ref`, or for phase 1 a list of them, one per dp row, each rank
+    held to its row's), the decoded values against the plain
+    expectation, and the SPMD key switches taken on the digit x slot
+    world."""
+    if k == 1:
+        name, n = LIMB_PHASES[1], DRY_N
+        expect = None
+    elif k == "4L":
+        name, (_, _, expect, n) = LIMB_PHASES[k], PHASES[4]
+    else:
+        name, _, expect, n = PHASES[k]
     bad = []
     for r, res in enumerate(ranks):
         got = res[k]
-        if not (np.array_equal(got["c0"], ref["c0"])
-                and np.array_equal(got["c1"], ref["c1"])):
+        want_r = ref[r // (len(ranks) // len(ref))] if k == 1 else ref
+        if not (np.array_equal(got["c0"], want_r["c0"])
+                and np.array_equal(got["c1"], want_r["c1"])):
             bad.append(f"phase {k} ({name}): rank {r} differs from the "
                        f"single-device result")
-        if got["switches"] <= 0:
+        if k not in LIMB_PHASES and got["switches"] <= 0:
             bad.append(f"phase {k} ({name}): rank {r} took no SPMD key "
                        f"switch")
+    if k == 1:
+        n = degree or n
+        errs = []
+        for i, (row, m) in enumerate(zip(ref, dry_messages(n, len(ref)))):
+            want = (0.5 * (np.roll(m, -1) + m))[:64]
+            errs.append(float(np.max(np.abs(row["decoded"] - want))))
+        if not max(errs) <= 1e-2:
+            bad.append(f"phase 1 ({name}): decode errors {errs} > 1e-2")
+        print(f"[phase 1] {name}: {len(ranks)} ranks, each dp row == the "
+              f"single-device step on its message (level "
+              f"{ref[0]['level']}, {ref[0]['seconds']:.2f} s alone); max "
+              f"decode errors {errs} (limit 1e-2)", flush=True)
+        return bad
     want, tol = expect(degree or n)
     dec = ranks[0][k]["decoded"]
     err = float(np.max(np.abs(dec - want)))
@@ -249,28 +369,39 @@ def check(k: int, ref: dict, ranks: list, degree: int) -> list:
     return bad
 
 
-def run(digits: int, slots: int, backend: str, device, degree: int = 0
-        ) -> dict:
-    """The world runs the mesh versions, then the parent the single-device
-    references; raises AssertionError listing every failure."""
+def _device(device):
     import torch
     from ace_tpu_torch import resolve_device
     from ace_tpu_torch.ops import kernels
-    from ace_tpu_torch.parallel.mesh import file_rendezvous, run_world
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels.build_all()  # once, before the ranks load the libraries
         if dev.index is None:
             dev = torch.device("cuda", 0)
+    return dev
+
+
+def _seconds(fn, *args) -> dict:
+    t1 = time.perf_counter()
+    r = fn(*args)
+    r["seconds"] = time.perf_counter() - t1
+    return r
+
+
+def run(digits: int, slots: int, backend: str, device, degree: int = 0
+        ) -> dict:
+    """The digit x slot world runs phases 2-5 through its mesh, then the
+    parent the single-device references; raises AssertionError listing
+    every failure."""
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.parallel.mesh import file_rendezvous, run_world
+    dev = _device(device)
     t0 = time.perf_counter()
     with file_rendezvous(kernels.build_dir()) as rdv:
         ranks = run_world(on_rank, digits, slots, backend, str(dev), rdv,
                           (degree,))
-    refs = {}
-    for k, (_, fn, _, n) in PHASES.items():
-        t1 = time.perf_counter()
-        refs[k] = fn(degree or n, digits, dev)
-        refs[k]["seconds"] = time.perf_counter() - t1
+    refs = {k: _seconds(fn, degree or n, digits, dev)
+            for k, (_, fn, _, n) in PHASES.items()}
     bad = []
     for k in PHASES:
         bad += check(k, refs[k], ranks, degree)
@@ -280,10 +411,42 @@ def run(digits: int, slots: int, backend: str, device, degree: int = 0
             "seconds": time.perf_counter() - t0}
 
 
+def run_limb(n_dp: int, n_limb: int, backend: str, device, degree: int = 0
+             ) -> dict:
+    """Phase 1's batch from the parent, then the dp x limb world runs
+    phases 1 and 4L through its mesh and the parent phase 4L's
+    single-device reference; raises AssertionError listing every
+    failure."""
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.parallel.mesh import (DP_LIMB, file_rendezvous,
+                                             run_world)
+    dev = _device(device)
+    t0 = time.perf_counter()
+    dry = _seconds(dry_batch, degree or DRY_N, n_dp, dev)
+    for row in dry["rows"]:
+        row["seconds"] = dry["seconds"]  # the batch's, keys included
+    with file_rendezvous(kernels.build_dir()) as rdv:
+        ranks = run_world(on_limb_rank, n_dp, n_limb, backend, str(dev), rdv,
+                          (degree, dry["batch"], dry["meta"]), axes=DP_LIMB)
+    refs = {1: dry["rows"],
+            "4L": _seconds(phase_bootstrap, degree or PHASES[4][3],
+                           DRY_PARTS, dev)}
+    bad = []
+    for k in LIMB_PHASES:
+        bad += check(k, refs[k], ranks, degree)
+    if bad:
+        raise AssertionError("\n".join(bad))
+    return {"ranks": ranks, "refs": refs,
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--digits", type=int, default=2)
-    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--digits", type=int, default=None,
+                    help="digit x slot world (2 x 2 when no world is named)")
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--dp", type=int, default=None, help="dp x limb world")
+    ap.add_argument("--limb", type=int, default=None)
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     ap.add_argument("--device", default=None,
                     help="default: the card (cuda:0); cpu for the plain "
@@ -291,18 +454,32 @@ def main(argv=None) -> int:
     ap.add_argument("--degree", type=int, default=0,
                     help="ring degree of every phase (0: their own)")
     a = ap.parse_args(argv)
+    limb = a.dp is not None or a.limb is not None
+    digit = a.digits is not None or a.slots is not None or not limb
+    summary = {"backend": a.backend}
     try:
-        res = run(a.digits, a.slots, a.backend, a.device, a.degree)
+        worlds = []
+        if limb:
+            worlds.append(("limb", {"dp": a.dp or 1, "limb": a.limb or 1},
+                           run_limb(a.dp or 1, a.limb or 1, a.backend,
+                                    a.device, a.degree)))
+        if digit:
+            d, s = a.digits or 2, a.slots or 2
+            worlds.append(("digit", {"digits": d, "slots": s},
+                           run(d, s, a.backend, a.device, a.degree)))
     except Exception:  # noqa: BLE001 — any failure fails the run
         import traceback
         traceback.print_exc()
         return 1
-    r0 = res["ranks"][0]
-    print(json.dumps({"digits": a.digits, "slots": a.slots,
-                      "backend": a.backend, "seconds": res["seconds"],
-                      "phases": {k: {"seconds": v["seconds"],
-                                     "switches": v["switches"],
-                                     **v["mesh"]} for k, v in r0.items()}}))
+    for name, shape, res in worlds:
+        world = dict(shape, seconds=res["seconds"], phases={
+            str(k): {"seconds": v["seconds"], "switches": v["switches"],
+                     "key_bytes": v["key_bytes"], **v["mesh"]}
+            for k, v in res["ranks"][0].items()})
+        # the digit x slot world's keys at the top, as before the limb world
+        summary.update(world) if name == "digit" else \
+            summary.update(limb_world=world)
+    print(json.dumps(summary))
     return 0
 
 

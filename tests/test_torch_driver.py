@@ -227,39 +227,59 @@ def test_chip_smoke_resnet_phase_on_cpu():
     assert res["launches"] and not any(res["launches"].values())
 
 
-def test_chip_smoke_spmd_phase_on_cpu():
-    """chip_smoke.py's phase 9 as main() calls it, at degree 2^10 on the
-    CPU (gloo for all three worlds): 9a at ResNet-20's chain (34 q
-    primes, 3 digits) on 3 x 2 ranks; 9b on 3 x 1 ranks with the block
-    graph on 16x16 (select_params picks N = 2^10) and the chain set to 34
-    q primes as phase 4 sets it, its reference residues from a
-    single-device run as main() takes phase 4's; 9c on one rank. The
-    phase holds every rank bit-exact itself; on the CPU no kernel
-    counter moves."""
+def _spmd_slice():
+    """phase 4's model for the world rehearsals at degree 2^10: the block
+    graph on 16x16 (select_params picks N = 2^10) with the chain set to
+    34 q primes as phase 4 sets it, and its reference residues from a
+    single-device run, as main() takes phase 4's."""
     from ace_tpu_torch.compiler.scheme_info import (SchemeConfig,
                                                     select_params)
     from ace_tpu_torch.ops import modops
     from ace_tpu_torch.runtime.context import FheContext as TContext
+    g = _block_graph(16)
+    img = np.random.default_rng(3).uniform(-1, 1, (1, 16, 16))
+    vr_default, vr = TM.calibrate_relu_ranges(g, [img], 4.0, {})
+    cfg = SchemeConfig(security_level=0, hamming_weight=16,
+                       first_mod_size=60, scaling_mod_size=56,
+                       relu_mul_depth=9, relu_value_range=vr_default,
+                       relu_ranges=vr, use_bootstrap=False)
+    info = select_params(g, cfg)
+    assert (info.poly_degree, info.q_part_num) == (1024, 3)
+    info.mul_level = chip_smoke.NUM_Q - 1
+    sm = {"graph": g, "cfg": cfg, "info": info, "img": img, "out_len": 32}
+    ctx = TContext(scheme_info=info, max_rot_keys=100, device="cpu")
+    model = TM.compile_model(g, cfg, ctx=ctx, num_classes=32)
+    TM.infer_encrypted(model, img)
+    ct = ctx.get_output_data("output")
+    return sm, (modops.to_numpy(ct.c0.data), modops.to_numpy(ct.c1.data))
+
+
+def test_chip_smoke_spmd_phase_on_cpu():
+    """chip_smoke.py's phase 9 as main() calls it, at degree 2^10 on the
+    CPU (gloo for all three worlds): 9a at ResNet-20's chain (34 q
+    primes, 3 digits) on 3 x 2 ranks; 9b on 3 x 1 ranks with
+    _spmd_slice()'s model and reference; 9c on one rank. The phase holds
+    every rank bit-exact itself; on the CPU no kernel counter moves."""
     with one_thread():
-        g = _block_graph(16)
-        img = np.random.default_rng(3).uniform(-1, 1, (1, 16, 16))
-        vr_default, vr = TM.calibrate_relu_ranges(g, [img], 4.0, {})
-        cfg = SchemeConfig(security_level=0, hamming_weight=16,
-                           first_mod_size=60, scaling_mod_size=56,
-                           relu_mul_depth=9, relu_value_range=vr_default,
-                           relu_ranges=vr, use_bootstrap=False)
-        info = select_params(g, cfg)
-        assert (info.poly_degree, info.q_part_num) == (1024, 3)
-        info.mul_level = chip_smoke.NUM_Q - 1
-        sm = {"graph": g, "cfg": cfg, "info": info, "img": img,
-              "out_len": 32}
-        ctx = TContext(scheme_info=info, max_rot_keys=100, device="cpu")
-        model = TM.compile_model(g, cfg, ctx=ctx, num_classes=32)
-        TM.infer_encrypted(model, img)
-        ct = ctx.get_output_data("output")
-        want = (modops.to_numpy(ct.c0.data), modops.to_numpy(ct.c1.data))
+        sm, want = _spmd_slice()
         res = chip_smoke.phase_spmd(
             device="cpu", kw=chip_smoke.spmd_kw(1024), sm=sm, want=want)
     assert sorted(res["seconds"]) == ["9a", "9a_single", "9b", "9c"]
     assert sorted(res["launches_spmd"]) == ["K1", "K2", "K3", "K4"]
     assert not any(res["launches_spmd"].values())
+
+
+def test_chip_smoke_limb_phase_on_cpu():
+    """chip_smoke.py's phase 9d as main() calls it, at degree 2^10 on the
+    CPU: a 2 x 2 (dp x limb) gloo world at ResNet-20's chain, each dp row
+    bit-identical to the single-device Evaluator on its own message, and
+    _spmd_slice()'s model equal to its single-device residues on every
+    rank. The phase holds both itself; main() holds the launch gate, and
+    on the CPU no kernel counter moves."""
+    with one_thread():
+        sm, want = _spmd_slice()
+        res = chip_smoke.phase_limb(
+            device="cpu", kw=chip_smoke.spmd_kw(1024), sm=sm, want=want)
+    assert sorted(res["seconds"]) == ["9d", "9d_single"]
+    assert sorted(res["launches_limb"]) == ["K1", "K2", "K3", "K4"]
+    assert not any(res["launches_limb"].values())

@@ -40,6 +40,8 @@ def _imported_roots(path):
 def test_no_jax_or_ace_tpu_imports():
     files = _port_files()
     assert len(files) > 20
+    for new in ("scripts/torch_report.py", "ace_tpu_torch/parallel/mesh.py"):
+        assert os.path.join(REPO, new) in files
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_roots(f) if m in ("jax", "jaxlib", "ace_tpu")]
     assert not bad, bad
@@ -52,7 +54,9 @@ def test_import_leaves_jax_unloaded():
             "ace_tpu_torch.utils.options, ace_tpu_torch.runtime.validate, "
             "ace_tpu_torch.runtime.ckpt, ace_tpu_torch.runtime.rt_data, "
             "ace_tpu_torch.runtime.block_io, ace_tpu_torch.ckks.nonlinear, "
-            "ace_tpu_torch.models.llama, ace_tpu_torch.models.llama_fhe; "
+            "ace_tpu_torch.models.llama, ace_tpu_torch.models.llama_fhe, "
+            "ace_tpu_torch.parallel.mesh, ace_tpu_torch.parallel.spmd_eval, "
+            "tests.torch_limb_worker, tests.torch_spmd_worker; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'ace_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
