@@ -246,10 +246,13 @@ class LimbMesh(ProcessMesh):
 
 
 def make_mesh(n_dp: int = 1, n_limb: int = 1, backend: str = "gloo",
-              device="cpu") -> LimbMesh:
+              device=None) -> LimbMesh:
     """This rank's ('dp', 'limb') mesh (ace_tpu.parallel.mesh.make_mesh)
-    over the initialized world of n_dp * n_limb ranks."""
-    return LimbMesh(n_dp, n_limb, backend, device)
+    over the initialized world of n_dp * n_limb ranks. device: None is
+    the card, as for every entry point (raises without one); pass "cpu"
+    or the rank's card."""
+    from ace_tpu_torch import resolve_device
+    return LimbMesh(n_dp, n_limb, backend, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

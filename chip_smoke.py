@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Ten phases (9d after 9); any failure exits non-zero and prints no
-result line.
+Eleven phases (9d after 9, then 10); any failure exits non-zero and
+prints no result line.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -60,6 +60,18 @@ result line.
      at level 34, bit-identical to the single-device Evaluator, and phase
      4's model, equal to phase 4's output residues; every rank launches
      K1-K4. The kernel rows' `launches_limb` count 9d over all ranks.
+ 10. the benchmark entry points at N = 2^16 (bench_torch.py,
+     bench_micro_torch.py and the native C library of ops/native.py, see
+     phase_bench): the C library's build and the one-thread CPU NTT
+     baseline; K3 and K4 at bench_torch's [8, 65536] and over
+     bench_micro_torch's whole chain [32, 65536] (24 q + 8 P primes),
+     each equal word for word to its plain version, timed, and K1-K4
+     likewise at [32, 65536] and [24, 65536]; bench_torch's
+     chained NTT passes (NTT/s, vs_baseline); bench_micro_torch's context
+     and ops, one rotate and one mul+relin+rescale decoded within 1e-4;
+     the full bootstrap (2^15 slots) cold and warm and a 2^12-slot sparse
+     one, decoded within 2e-2. The kernel rows' `launches_2e16` count
+     its bench pass, ops and bootstraps.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -127,15 +139,6 @@ def time_ms(fn, reps: int = 10, batch: int = 1) -> float:
     return statistics.median(times)
 
 
-def syncer(device):
-    """A function that waits for `device`: torch.cuda.synchronize for a
-    CUDA device, nothing for the CPU."""
-    import torch
-    if torch.device(device).type == "cuda":
-        return torch.cuda.synchronize
-    return lambda: None
-
-
 # ---------------------------------------------------------------------------
 # Phase 1: device and build
 # ---------------------------------------------------------------------------
@@ -144,21 +147,17 @@ def phase_device_and_build() -> dict:
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
-    log(f"[phase 1] card: {card}")
+    from ace_tpu_torch.ops import kernels
+    from ace_tpu_torch.utils.card import card
+    name_power = card()
+    log(f"[phase 1] card: {name_power}")
     log(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    from ace_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     times = kernels.build_all(verbose=True)
     log(f"[phase 1] built {sorted(times)} in "
         f"{time.perf_counter() - t0:.1f} s into {kernels.build_dir()}")
-    return {"card": card}
+    return {"card": name_power}
 
 
 # ---------------------------------------------------------------------------
@@ -286,60 +285,70 @@ def ntt_shape(L: int, n: int) -> str:
             f"once (K3/K4)")
 
 
+def ntt_exact_and_timed(t, xs, what: str, tag: str) -> dict:
+    """K3 and K4 on tables `t` over the input sets xs (each [L, n] on the
+    card): each held word for word against its plain version and the
+    round trip checked on xs[0], then timed like phase 2 (20 raw
+    launches cycling over the sets between CUDA events, median of 10).
+    Returns {"K3": (ms, bound_ms), "K4": (ms, bound_ms)}."""
+    import torch
+    from ace_tpu_torch.ops import kernels, ntt, ntt4
+    L, n = xs[0].shape
+    logn = n.bit_length() - 1
+    f = ntt4.ntt4_fwd(xs[0], t)
+    if not torch.equal(f, ntt.ntt_fwd_plain(xs[0], t)):
+        raise AssertionError(f"K3 at [{L}, {n}] differs from the plain "
+                             f"version")
+    if not torch.equal(ntt4.ntt4_inv(xs[0], t), ntt.ntt_inv_plain(xs[0], t)):
+        raise AssertionError(f"K4 at [{L}, {n}] differs from the plain "
+                             f"version")
+    if not torch.equal(ntt4.ntt4_inv(f, t), xs[0]):
+        raise AssertionError(f"K4(K3(x)) != x at [{L}, {n}]")
+    lib = kernels.lib("ntt")
+    st = kernels.stream_ptr(xs[0])
+    out = torch.empty_like(xs[0])
+    tp = {k: getattr(t, k).data_ptr() for k in (
+        "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
+        "n_inv_prec", "rows")}
+    k = len(xs)
+    raw = {
+        "K3": lambda i: lib.ace_k3_ntt_fwd(
+            xs[i % k].data_ptr(), out.data_ptr(), tp["rou"],
+            tp["rou_prec"], tp["q"], tp["rows"], L, logn, st),
+        "K4": lambda i: lib.ace_k4_ntt_inv(
+            xs[i % k].data_ptr(), out.data_ptr(), tp["rou_inv"],
+            tp["rou_inv_prec"], tp["q"], tp["n_inv"], tp["n_inv_prec"],
+            tp["rows"], L, logn, st),
+    }
+    res, msg = {}, []
+    for key, f_raw in raw.items():
+        def launch(i, f=f_raw, what=f"{key} at [{L}, {n}]"):
+            kernels.check(f(i), what)
+        ms = time_ms(launch, reps=10, batch=20)
+        stages = logn + (2 if key == "K4" else 0)  # as in phase_kernels
+        b_ms, _ = bound(4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * stages)
+        res[key] = (ms, b_ms)
+        msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms "
+                   f"({100 * b_ms / ms:.0f}%)")
+    log(f"{tag} [{L}, {n}] ({what}): K3, K4 exact, round trip exact; "
+        f"{'; '.join(msg)}; {ntt_shape(L, n)}")
+    return res
+
+
 def ntt_path_shapes(crt, sets) -> None:
     """K3 and K4 at the limb counts the slice launches at N = 2^15:
     rescale's last q limb (1), the P limbs of mod-down (12) and the q
-    chain (34). Each is first held word for word against the plain
-    version and its round trip checked, then timed like phase 2 (4 input
-    sets; at 1 limb they all stay in L2)."""
+    chain (34), each through ntt_exact_and_timed (4 input sets; at 1
+    limb they all stay in L2)."""
     import torch
-    from ace_tpu_torch.ops import kernels, ntt, ntt4
-    n = crt.degree
-    logn = n.bit_length() - 1
-    lib = kernels.lib("ntt")
-    st = kernels.stream_ptr(sets[0][0])
     for what, rows in (("rescale's last q limb", [NUM_Q - 1]),
                        ("the P limbs", list(range(NUM_Q, crt.num_q
                                                   + crt.num_p))),
                        ("the q chain", list(range(NUM_Q)))):
-        L = len(rows)
-        t = crt.tables_for(rows)
         idx = torch.tensor(rows, device=crt.device)
-        xs = [x.index_select(0, idx) for x, _ in sets]
-        out = torch.empty_like(xs[0])
-        f = ntt4.ntt4_fwd(xs[0], t)
-        if not torch.equal(f, ntt.ntt_fwd_plain(xs[0], t)):
-            raise AssertionError(f"K3 at L = {L} differs from the plain "
-                                 f"version")
-        if not torch.equal(ntt4.ntt4_inv(xs[0], t),
-                           ntt.ntt_inv_plain(xs[0], t)):
-            raise AssertionError(f"K4 at L = {L} differs from the plain "
-                                 f"version")
-        if not torch.equal(ntt4.ntt4_inv(f, t), xs[0]):
-            raise AssertionError(f"K4(K3(x)) != x at L = {L}")
-        tp = {k: getattr(t, k).data_ptr() for k in (
-            "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
-            "n_inv_prec", "rows")}
-        raw = {
-            "K3": lambda i: lib.ace_k3_ntt_fwd(
-                xs[i % 4].data_ptr(), out.data_ptr(), tp["rou"],
-                tp["rou_prec"], tp["q"], tp["rows"], L, logn, st),
-            "K4": lambda i: lib.ace_k4_ntt_inv(
-                xs[i % 4].data_ptr(), out.data_ptr(), tp["rou_inv"],
-                tp["rou_inv_prec"], tp["q"], tp["n_inv"], tp["n_inv_prec"],
-                tp["rows"], L, logn, st),
-        }
-        msg = []
-        for key, f_raw in raw.items():
-            def launch(i, f=f_raw, what=f"{key} at L = {L}"):
-                kernels.check(f(i), what)
-            ms = time_ms(launch, reps=10, batch=20)
-            stages = logn + (2 if key == "K4" else 0)  # as in phase_kernels
-            b_ms, _ = bound(4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * stages)
-            msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms "
-                       f"({100 * b_ms / ms:.0f}%)")
-        log(f"[phase 2] L = {L} ({what}): K3, K4 exact, round trip exact; "
-            f"{'; '.join(msg)}; {ntt_shape(L, n)}")
+        ntt_exact_and_timed(crt.tables_for(rows),
+                            [x.index_select(0, idx) for x, _ in sets],
+                            what, "[phase 2]")
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +541,7 @@ def profile_inference(run, unprofiled_s: float, tag: str,
     nothing is logged as not measured."""
     import contextlib
     import torch
+    from ace_tpu_torch.utils.card import syncer
     stack = contextlib.ExitStack()
     prof = None
     on_card = torch.device(device).type == "cuda"
@@ -678,6 +688,7 @@ def phase_resnet20(device=None, graph=None, img=None,
     from ace_tpu_torch.compiler.scheme_info import select_params
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.runtime.timing import TIMING
+    from ace_tpu_torch.utils.card import syncer
     from ace_tpu_torch.utils.scripts import load_script
 
     zoo = load_script("torch_zoo")
@@ -846,6 +857,7 @@ def phase_runtime_services(g, img, vr_default: float, vr: dict,
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.runtime.timing import TIMING
     from ace_tpu_torch.runtime.validate import Shadow, ValidationError
+    from ace_tpu_torch.utils.card import syncer
 
     sync = syncer(device)
     TIMING.enabled = True
@@ -1222,6 +1234,7 @@ def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
     from ace_tpu_torch.models import llama_fhe as LF
     from ace_tpu_torch.ops import read_counters, read_limbs, reset_counters
     from ace_tpu_torch.runtime.timing import TIMING
+    from ace_tpu_torch.utils.card import syncer
 
     dev = resolve_device(device)
     sync = syncer(dev)
@@ -1404,6 +1417,7 @@ def rank_spmd_ops(mesh, kw, seed, msg, t_spawn):
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.ops import reset_counters
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
     sync = syncer(mesh.device)
     t0 = time.perf_counter()
@@ -1434,6 +1448,7 @@ def rank_spmd_model(mesh, sm, want, t_spawn):
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.ops import modops, reset_counters
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
     sync = syncer(mesh.device)
     t0 = time.perf_counter()
@@ -1465,6 +1480,7 @@ def rank_one(mesh, kw, seed, msg, level, t_spawn):
     from ace_tpu_torch.ops import reset_counters
     from ace_tpu_torch.parallel.spmd import SpmdKeySwitch
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
     ctx = FheContext(CkksParams(**kw, device=mesh.device), seed=seed)
     ct = ctx.prepare_input(msg, "x", level=level)
@@ -1518,6 +1534,7 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
     from ace_tpu_torch.ops import kernels
     from ace_tpu_torch.parallel.mesh import file_rendezvous, run_world
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
 
     dev = resolve_device(device)
     kw = kw or spmd_kw()
@@ -1681,6 +1698,7 @@ def rank_limb(mesh, kw, sm, want, t_spawn):
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.ops import modops, reset_counters
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
     sync = syncer(mesh.device)
     t0 = time.perf_counter()
@@ -1749,6 +1767,7 @@ def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
     from ace_tpu_torch.parallel.mesh import (DP_LIMB, file_rendezvous,
                                              run_world)
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import syncer
 
     dev = resolve_device(device)
     kw = kw or spmd_kw()
@@ -1841,6 +1860,168 @@ def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
             "launches_min": {k: min(res["launches"][k] for res in ranks)
                              for k in names},
             "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the benchmark entry points at N = 2^16
+# ---------------------------------------------------------------------------
+
+BENCH_ITERS = 5       # bench_micro_torch's --iters in phase 10
+BENCH_TOL = 1e-4      # decode bound of the rotate and the mul+relin+rescale
+BTS_TOL = 2e-2        # phase 5's bootstrap bound
+BENCH_SPARSE = 1 << 12
+
+
+def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
+                iters: int = BENCH_ITERS, sparse: int = BENCH_SPARSE) -> dict:
+    """bench_torch.py and bench_micro_torch.py at their defaults, through
+    their own functions (the scripts loaded from the checkout):
+    (a) the native C library's build and the one-thread CPU NTT baseline;
+    (b) K3 and K4 at bench_torch's [8, N] and over bench_micro_torch's
+        whole chain [num_q + P, N], each equal word for word to its plain
+        version, round trip included, and timed (ntt_exact_and_timed);
+        then K1-K4 over that chain and over its q primes alone
+        (kernels_exact_at), the shapes of the key switch and the ops;
+    (c) bench_torch's chained K3 passes at [8, N]: NTT/s, vs_baseline;
+    (d) bench_micro_torch's context and ops (--iters `iters`), then one
+        rotate and one mul+relin+rescale decoded against np.roll(msg, -1)
+        and msg * msg within BENCH_TOL;
+    (e) the full bootstrap (N/2 slots, msg * 0.1 at level 2) cold and
+        warm, and the sparse one at `sparse` slots cold, each decoded
+        within BTS_TOL.
+    The kernel counters are set to 0 after (b) and read after (e): the
+    launches of (c)-(e). The moduli are bench_micro_torch's defaults;
+    device, degree, num_q, iters and sparse let the CPU run it small."""
+    import torch
+    from ace_tpu_torch import resolve_device
+    from ace_tpu_torch.ops import modops, native, ntt, read_counters, \
+        reset_counters
+    from ace_tpu_torch.runtime.timing import TIMING
+    from ace_tpu_torch.utils.card import syncer
+    import bench_micro_torch as bm
+    import bench_torch as bt
+
+    dev = resolve_device(device)
+    gpu = dev.type == "cuda"
+    sync = syncer(dev)
+    if gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    t0 = time.perf_counter()
+    built = native.build()
+    out["native_build_s"] = time.perf_counter() - t0
+    cpu = bt.bench_cpu_baseline(degree)
+    log(f"[phase 10] (a) native library {'built' if built else 'cached'} "
+        f"in {out['native_build_s']:.2f} s; one-thread C NTT at N = "
+        f"{degree}: {cpu['ms']:.4f} ms = {cpu['ntt_per_s']:.1f} NTT/s")
+
+    t0 = time.perf_counter()
+    defaults = bm.parse_args([])
+    ctx = bm.make_context(degree, num_q, defaults.first_mod_size,
+                          defaults.scaling_mod_size, dev)
+    sync()
+    out["context_s"] = time.perf_counter() - t0
+    crt = ctx.params.crt
+    log(f"[phase 10] (d) bench_micro_torch context: N = {degree}, "
+        f"{crt.num_q} q + {crt.num_p} P primes, {ctx.params.num_q_parts} "
+        f"digits, in {out['context_s']:.2f} s")
+
+    _, t8, x8 = bt.ntt_inputs(degree, bt.LIMBS, dev)
+    rng_b = np.random.default_rng(SEED)
+    for what, t, x0 in (("bench_torch's shape", t8, x8),
+                        ("bench_micro_torch's q and P chain",
+                         crt.ntt_tables, None)):
+        primes = modops.to_numpy(t.q)[:, 0]
+        xs = [] if x0 is None else [x0]
+        while len(xs) < 4:
+            xs.append(modops.to_torch(np.stack([
+                rng_b.integers(0, q, degree, dtype=np.uint64)
+                for q in primes]), dev))
+        if gpu:
+            out[f"ntt_{len(primes)}"] = ntt_exact_and_timed(
+                t, xs, what, "[phase 10] (b)")
+        else:
+            back = ntt.ntt_inv(ntt.ntt_fwd(xs[0], t), t)
+            if not torch.equal(back, xs[0]):
+                raise AssertionError(f"K4(K3(x)) != x ({what})")
+    del xs
+    kernels_exact_at(crt, range(crt.num_q + crt.num_p),
+                     "bench_micro_torch's q and P chain", "[phase 10] (b)")
+    kernels_exact_at(crt, range(crt.num_q), "bench_micro_torch's q chain",
+                     "[phase 10] (b)")
+
+    reset_counters()
+    d = bt.bench_device(degree, bt.LIMBS, dev)
+    line = bt.ntt_metric(d["ntt_per_s"], cpu["ntt_per_s"])
+    out["bench_ntt"] = dict(line, pass_event_ms=d["pass_event_ms"],
+                            rates=d["rates"])
+    b_ms, _ = bound(4 * bt.LIMBS * degree * 8, SHOUP_IMAD * bt.LIMBS
+                    * (degree // 2) * (degree.bit_length() - 1))
+    ev = (f"; one pass between CUDA events {d['pass_event_ms']:.4f} ms "
+          f"({d['pass_event_ms'] / bt.STEADY_ITERS * 1e3:.2f} us a call); "
+          f"{ntt_shape(bt.LIMBS, degree)}" if gpu else "")
+    log(f"[phase 10] (c) bench_torch --ntt: {json.dumps(line)}; passes "
+        f"{[round(r, 1) for r in d['rates']]} NTT/s; bound {b_ms * 1e3:.2f} "
+        f"us a call = {bt.LIMBS / b_ms * 1e3:.4g} NTT/s{ev}")
+
+    rng = np.random.default_rng(0)  # bench_micro_torch's: msg, then
+    o = bm.operands(ctx, rng)         # the sparse bootstrap's input
+    ops = {}
+    for name, fn, leaf in bm.op_table(ctx, o):
+        ops[name] = bm.timed(fn, leaf, iters, sync)
+    out["ops_ms"] = {k: v * 1e3 for k, v in ops.items()}
+    log("[phase 10] (d) ops (ms, --iters " + str(iters) + "): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["ops_ms"].items()))
+    ev_, msg = ctx.evaluator, o["msg"].real
+    checks = (("rotate", ev_.rotate(o["ct1"], 1), np.roll(msg, -1)),
+              ("mul+relin+rescale",
+               ev_.rescale(ev_.mul(o["ct1"], o["ct2"])), msg * msg))
+    for what, ct, want in checks:
+        ctx.set_output_data(what, ct)
+        e = float(np.max(np.abs(ctx.handle_output(what) - want)))
+        out[f"err_{what}"] = e
+        log(f"[phase 10] (d) {what} decodes within {e:.3e} (limit "
+            f"{BENCH_TOL})")
+        if not e <= BENCH_TOL:
+            raise AssertionError(f"{what} at N = {degree} decodes with "
+                                 f"error {e}")
+
+    TIMING.enabled = True
+    bts = {}
+    for name, fn, _, want in bm.bootstrap_cases(ctx, o, rng, True, sparse):
+        runs = ("cold", "warm") if name == "bootstrap_full" else ("cold",)
+        for run in runs:
+            TIMING.reset()
+            t0 = time.perf_counter()
+            ct = fn()
+            sync()
+            secs = time.perf_counter() - t0
+            ctx.set_output_data(name, ct)
+            e = float(np.max(np.abs(ctx.handle_output(name) - want.real)))
+            bts[f"{name}_{run}"] = secs
+            out[f"err_{name}_{run}"] = e
+            log(f"[phase 10] (e) {name} {run} {secs:.2f} s (tables "
+                f"{TIMING.seconds('RTM_BS_SETUP'):.2f} s, "
+                f"{TIMING.count('RTM_ROT_KEY_REGEN')} rotation keys "
+                f"{TIMING.seconds('RTM_ROT_KEY_REGEN'):.2f} s); level "
+                f"{bm.BTS_LEVEL} -> {ct.level}; decodes within {e:.3e} "
+                f"(limit {BTS_TOL})")
+            if not e < BTS_TOL:
+                raise AssertionError(f"{name} ({run}) decodes with error "
+                                     f"{e}")
+    out["bootstrap_s"] = bts
+    out["launches"] = read_counters()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if gpu \
+        else 0.0
+    out["keys_held"] = len(ctx.keygen._rot_keys)
+    out["key_bytes"] = ctx.key_memory_bytes()
+    log(f"[phase 10] launches in (c)-(e): {out['launches']}; "
+        f"{out['keys_held']} rotation keys held, all keys "
+        f"{out['key_bytes']} B; peak device memory "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
 
 
 def main() -> int:
@@ -1953,6 +2134,26 @@ def main() -> int:
             f"{limb['seconds']['9d']:.1f} s; launches in 9d over all ranks "
             f"{limb['launches_limb']}, fewest on a rank "
             f"{limb['launches_min']}")
+        bench = phase_bench()
+        lap("10")
+        idle = [k for k, v in bench["launches"].items() if v == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched in phase 10: "
+                                 f"{idle}")
+        for r in rows:
+            r["launches_2e16"] = bench["launches"][r["name"].split()[0]]
+        nt8, bs = bench["ntt_8"], bench["bootstrap_s"]
+        log(f"[summary] benchmark entry points at N = 2^16: bench_torch "
+            f"--ntt {bench['bench_ntt']['value']} NTT/s (vs_baseline "
+            f"{bench['bench_ntt']['vs_baseline']}); K3/K4 at [8, 65536] "
+            f"{nt8['K3'][0]:.4f} / {nt8['K4'][0]:.4f} ms; context "
+            f"{bench['context_s']:.1f} s; rotate "
+            f"{bench['ops_ms']['rotate']:.2f} ms; bootstrap full cold / "
+            f"warm {bs['bootstrap_full_cold']:.1f} / "
+            f"{bs['bootstrap_full_warm']:.1f} s, sparse {BENCH_SPARSE} "
+            f"cold {bs[f'bootstrap_sparse_{BENCH_SPARSE}_cold']:.1f} s; "
+            f"peak {bench['peak_gib']:.2f} GiB; launches "
+            f"{bench['launches']}")
         log("[summary] phase seconds " + ", ".join(
             f"{k}: {v:.1f}" for k, v in secs.items())
             + f"; script {time.perf_counter() - t_start:.1f} s on "

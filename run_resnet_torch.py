@@ -25,7 +25,10 @@ runs the plain PyTorch versions of the kernels (slow at N = 2^15: use
 --layers to cut the graph). --rtt decrypts and checks every op against a
 plaintext shadow. --checkpoint saves the live ciphertexts after every op
 to <PATH>.img<i>.npz and resumes an image from it; --json keeps the
-finished images' rows and skips them when run again.
+finished images' rows and skips them when run again. Each row holds
+run_resnet.py's keys plus the card's `name, power.limit` (`card`, as
+nvidia-smi gives them) and the process's peak device memory so far
+(`max_memory_allocated`), both null on the CPU.
 """
 
 import argparse
@@ -82,6 +85,7 @@ def main():
                                                     select_params)
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.runtime.context import FheContext
+    from ace_tpu_torch.utils.card import card
 
     def trace(msg):
         print(f"# {msg}", file=sys.stderr, flush=True)
@@ -131,8 +135,11 @@ def main():
           + ("" if sec["compliant"] else " [perf-evaluation config — "
              "see SECURITY.md]"))
 
+    gpu = model.ctx.device.type == "cuda"
+    name_power = card() if gpu else None
+
     def sync():
-        if model.ctx.device.type == "cuda":
+        if gpu:
             torch.cuda.synchronize()
 
     # resume: finished images live in the json, an image in flight in
@@ -170,7 +177,9 @@ def main():
         err = float(np.max(np.abs(logits[:k] - plain[:k])))
         agree = bool(np.argmax(logits[:k]) == np.argmax(plain[:k]))
         row = dict(image=i, seconds=dt, max_err=err, argmax_agree=agree,
-                   params=params_row)
+                   params=params_row, card=name_power,
+                   max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                         if gpu else None))
         if labels is not None:
             row["label_match"] = bool(np.argmax(logits[:k]) == labels[i])
         results.append(row)

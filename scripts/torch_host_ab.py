@@ -129,6 +129,7 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.dirname(ace_tpu_torch.__file__))
     assert here == tree, (here, tree)
+    # its own query, not ace_tpu_torch.utils.card: an older tree lacks it
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -250,12 +250,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
     from ace_tpu_torch.ops import kernels, modops, ntt, ntt4
     from ace_tpu_torch.poly.rns import CrtContext
+    from ace_tpu_torch.utils.card import card
+    print(card(), flush=True)
     kernels.build_all()
     probe_so = compile_aux()
     if args.sass:

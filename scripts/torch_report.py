@@ -7,8 +7,11 @@ counterpart of scripts/report.py for ace_tpu_torch.
 Reads results/torch_<model>.json (the rows of scripts/torch_zoo.py and
 run_resnet_torch.py: one per image, each with its `card`, the card's
 name and power limit as nvidia-smi gives them, and its
-`max_memory_allocated`) and results/torch_accuracy_*.json (the summaries
-of scripts/torch_accuracy.py and the zoo). Every time and memory figure
+`max_memory_allocated`), results/torch_accuracy_*.json (the summaries
+of scripts/torch_accuracy.py and the zoo) and
+results/torch_bench_micro_*.json (bench_micro_torch.py's op times, one
+table per file beside its `card`, as scripts/report.py renders
+bench_micro.py's). Every time and memory figure
 stands in a row beside the card it was measured on. The reference column
 is the ACE reference binary's seconds per image on one thread of a Xeon
 8369B CPU (scripts/ace_pre.log, as scripts/report.py has them).
@@ -56,8 +59,10 @@ def latency_rows(root: str = ROOT) -> list:
     rows = []
     for path in sorted(glob.glob(os.path.join(root, "results", "torch_*.json"))):
         name = os.path.splitext(os.path.basename(path))[0][len("torch_"):]
+        if name.startswith(("accuracy_", "bench_micro_")):
+            continue
         data = _load(path)
-        if name.startswith("accuracy_") or not isinstance(data, list):
+        if not isinstance(data, list):
             continue
         by_card = {}
         for r in data:
@@ -95,6 +100,17 @@ def accuracy_rows(root: str = ROOT) -> list:
             "card": d.get("card") or "card not recorded",
             "peak": d.get("max_memory_allocated")})
     return rows
+
+
+def micro_tables(root: str = ROOT) -> list:
+    """One (file, summary) per results/torch_bench_micro_*.json."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(
+            root, "results", "torch_bench_micro_*.json"))):
+        d = _load(path)
+        if isinstance(d, dict) and d.get("seconds"):
+            out.append((os.path.basename(path), d))
+    return out
 
 
 def render(root: str = ROOT) -> str:
@@ -135,7 +151,23 @@ def render(root: str = ROOT) -> str:
                 f"| {r['max_err']:.4f} | {gates} | {r['card']} | {secs} "
                 f"| {_gib(r['peak'])} |")
         lines.append("")
-    if not lat and not acc:
+    micro = micro_tables(root)
+    for fname, d in micro:
+        card = d.get("card") or "card not recorded"
+        lines += [f"## Op microbenchmarks (bench_micro_torch.py): "
+                  f"N={d.get('degree')} num_q={d.get('num_q')} "
+                  f"({d.get('first_mod_size')}/{d.get('scaling_mod_size')}"
+                  f"-bit primes), {d.get('iters')} iterations", "",
+                  "| file | card | op | ms | ops/s |",
+                  "|---|---|---|---|---|"]
+        for op, sec in d["seconds"].items():
+            lines.append(f"| {fname} | {card} | {op} | {sec * 1e3:.3f} "
+                         f"| {1.0 / sec:.1f} |")
+        if d.get("key_switches_per_s"):
+            lines.append(f"| {fname} | {card} | (key switches/s) | - "
+                         f"| {d['key_switches_per_s']} |")
+        lines.append("")
+    if not lat and not acc and not micro:
         lines.append("(no result files: run scripts/torch_zoo.py or "
                      "scripts/torch_accuracy.py first)")
     return "\n".join(lines) + "\n"

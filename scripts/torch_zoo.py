@@ -40,7 +40,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -138,14 +137,6 @@ def shared_context(infos: dict, max_rot_keys: int = 0, device=None):
     return shared, ctx
 
 
-def card() -> str:
-    """`name, power.limit` of the card as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=30).stdout.strip().splitlines()[0]
-
-
 def measured_infer(model, image):
     """infer_encrypted with the image's counters: kernel launches and the
     NTT kernels' limbs (set to 0 first), and the timing buckets,
@@ -189,6 +180,7 @@ def run_model(name, graph, cfg, ctx, images, classes, info=None,
     import torch
     from ace_tpu_torch.compiler.scheme_info import security_posture
     from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.utils.card import card
 
     model = M.compile_model(graph, cfg, ctx=ctx, num_classes=classes,
                             trace=trace)

@@ -1,9 +1,10 @@
 """PyTorch port: it stands alone. No file of ace_tpu_torch/, nor
-chip_smoke.py, run_resnet_torch.py or scripts/torch_*.py, imports jax or
-ace_tpu; importing the port leaves jax unloaded; it reads no environment
-variable but the runtime timer's, and the zoo and accuracy scripts none; its native host code is a source that builds outside
-the package; its entry points refuse to fall back to the CPU
-silently."""
+chip_smoke.py, run_resnet_torch.py, bench_torch.py, bench_micro_torch.py
+or scripts/torch_*.py, imports jax or ace_tpu; importing the port leaves
+jax unloaded; it reads no environment variable but the runtime timer's,
+and the zoo, accuracy and benchmark scripts and the native loader none;
+its native host code is sources that build outside the package; its
+entry points refuse to fall back to the CPU silently."""
 
 import ast
 import os
@@ -17,8 +18,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_files():
-    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
-                                              "run_resnet_torch.py")]
+    files = [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "run_resnet_torch.py", "bench_torch.py",
+        "bench_micro_torch.py")]
     scripts = os.path.join(REPO, "scripts")
     files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
               if n.startswith("torch_") and n.endswith(".py")]
@@ -40,7 +42,9 @@ def _imported_roots(path):
 def test_no_jax_or_ace_tpu_imports():
     files = _port_files()
     assert len(files) > 20
-    for new in ("scripts/torch_report.py", "ace_tpu_torch/parallel/mesh.py"):
+    for new in ("scripts/torch_report.py", "ace_tpu_torch/parallel/mesh.py",
+                "bench_torch.py", "bench_micro_torch.py",
+                "ace_tpu_torch/ops/native.py"):
         assert os.path.join(REPO, new) in files
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_roots(f) if m in ("jax", "jaxlib", "ace_tpu")]
@@ -56,6 +60,8 @@ def test_import_leaves_jax_unloaded():
             "ace_tpu_torch.runtime.block_io, ace_tpu_torch.ckks.nonlinear, "
             "ace_tpu_torch.models.llama, ace_tpu_torch.models.llama_fhe, "
             "ace_tpu_torch.parallel.mesh, ace_tpu_torch.parallel.spmd_eval, "
+            "ace_tpu_torch.ops.native, ace_tpu_torch.utils.card, "
+            "bench_torch, bench_micro_torch, "
             "tests.torch_limb_worker, tests.torch_spmd_worker; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'ace_tpu')))")
@@ -77,9 +83,14 @@ def test_reads_only_the_timing_variable():
 
 def test_zoo_scripts_read_no_environment_variable():
     """The zoo and accuracy scripts enable the timer through
-    TIMING.enabled, not RTLIB_TIMING_OUTPUT as scripts/zoo.py does."""
+    TIMING.enabled, not RTLIB_TIMING_OUTPUT as scripts/zoo.py does; the
+    benchmark scripts take --ntt where bench.py reads ACE_BENCH_NTT; the
+    native loader reads none."""
     names = [os.path.join(REPO, "scripts", n) for n in ("torch_zoo.py",
                                                          "torch_accuracy.py")]
+    names += [os.path.join(REPO, n) for n in (
+        "bench_torch.py", "bench_micro_torch.py",
+        os.path.join("ace_tpu_torch", "ops", "native.py"))]
     assert set(names) <= set(_port_files())
     for f in names:
         src = open(f).read()
@@ -90,17 +101,20 @@ def test_zoo_scripts_read_no_environment_variable():
 
 
 def test_native_sources_build_outside_the_package():
-    """ace_tpu_torch/native holds C++ sources only (ace_tpu commits its
-    libblock_io.so; the port does not), and the block-IO library builds
-    into the git-ignored build directory of the CUDA kernels."""
-    from ace_tpu_torch.ops import kernels
+    """ace_tpu_torch/native holds C and C++ sources only (ace_tpu commits
+    its libblock_io.so and libckks_core.so; the port does not), and the
+    block-IO and ckks_core libraries build into the git-ignored build
+    directory of the CUDA kernels."""
+    from ace_tpu_torch.ops import kernels, native as ckks_core
     from ace_tpu_torch.runtime import block_io
     pkg = os.path.join(REPO, "ace_tpu_torch")
     built = [os.path.join(r, n) for r, _, names in os.walk(pkg)
              for n in names if n.endswith((".so", ".o"))]
     assert not built, built
-    assert os.listdir(os.path.join(pkg, "native")) == ["block_io.cc"]
+    assert sorted(os.listdir(os.path.join(pkg, "native"))) == [
+        "block_io.cc", "ckks_core.c"]
     assert os.path.dirname(block_io.lib_path()) == kernels.build_dir()
+    assert os.path.dirname(ckks_core.lib_path()) == kernels.build_dir()
     assert "build/" in open(os.path.join(REPO, ".gitignore")).read().split()
 
 

@@ -6,8 +6,8 @@ layout against ace_tpu's make_mesh on conftest's 8 virtual devices,
 ownership of limbs across levels, and FheContext(mesh=...) with its own
 keys (per-rank key bytes, ranks agreeing with the unsharded keys of the
 same seed, a decode). Also the refusals: no CUDA default for a
-CrtContext without a card, no mesh combined with a digit mesh, no
-checkpoint under a limb mesh.
+CrtContext or make_mesh without a card, no mesh combined with a digit
+mesh, no checkpoint under a limb mesh.
 
 One world serves the file (module fixture); the ranks run
 tests/torch_limb_worker.py and exchange numpy arrays with the parent."""
@@ -164,6 +164,27 @@ def test_crt_context_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CrtContext(4, 60, 56, 64, 2)
     assert CrtContext(4, 60, 56, 64, 2, device="cpu").device.type == "cpu"
+
+
+def test_make_mesh_defaults_to_the_card(tmp_path):
+    """make_mesh's device=None is the card, as every entry point's: in a
+    one-rank gloo world on the CPU it raises without a card, and
+    device="cpu" gives the 1 x 1 mesh."""
+    import torch.distributed as dist
+    from ace_tpu_torch.parallel.mesh import make_mesh
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with file_rendezvous(str(tmp_path)) as rdv:
+        dist.init_process_group("gloo", init_method=rdv, world_size=1,
+                                rank=0)
+        try:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make_mesh(1, 1)
+            m = make_mesh(1, 1, device="cpu")
+            assert m.device == torch.device("cpu")
+            assert m.shape == {"dp": 1, "limb": 1}
+        finally:
+            dist.destroy_process_group()
 
 
 def test_empty_shard_runs_the_plain_versions():

@@ -1,7 +1,8 @@
 """PyTorch port: scripts/torch_report.py renders RESULTS_TORCH.md from
 the committed results/torch_*.json: every row with a time or a memory
 figure names its card, nothing of the JAX package's results (its TPU
-figures, BENCH_r*.json, results/<model>.json) appears, and the
+figures, BENCH_r*.json, results/<model>.json, results/bench_micro_*.json)
+appears, bench_micro_torch.py's files render as op tables, and the
 committed RESULTS_TORCH.md is what the script renders now."""
 
 import json
@@ -60,3 +61,35 @@ def test_reads_only_the_port_results(tmp_path):
     out = tmp_path / "R.md"
     assert R.main(["--out", str(out)]) == 0
     assert out.read_text() == R.render()
+
+
+def test_renders_the_op_microbenchmarks_beside_their_card(tmp_path):
+    """results/torch_bench_micro_*.json: one table per file, every op row
+    naming the file's card (or that none was recorded); the JAX
+    package's results/bench_micro_*.json is not read."""
+    res = tmp_path / "results"
+    res.mkdir()
+    (res / "bench_micro_r05_2e16.json").write_text(json.dumps(
+        {"backend": "tpu", "degree": 65536, "seconds": {"add": 1e-3}}))
+    (res / "torch_bench_micro_2e16.json").write_text(json.dumps(
+        {"backend": "cuda", "degree": 65536, "num_q": 24,
+         "first_mod_size": 60, "scaling_mod_size": 56, "iters": 10,
+         "seconds": {"add": 2e-4, "rotate": 0.025},
+         "key_switches_per_s": 40.0,
+         "card": "NVIDIA H100 80GB HBM3, 700.00 W"}))
+    (res / "torch_bench_micro_cpu.json").write_text(json.dumps(
+        {"backend": "cpu", "degree": 1024, "num_q": 4, "iters": 1,
+         "seconds": {"add": 1e-4}, "card": None}))
+    text = R.render(str(tmp_path))
+    assert "tpu" not in text.lower()
+    rows = _table_rows(text)
+    assert rows == [
+        "| torch_bench_micro_2e16.json | NVIDIA H100 80GB HBM3, 700.00 W "
+        "| add | 0.200 | 5000.0 |",
+        "| torch_bench_micro_2e16.json | NVIDIA H100 80GB HBM3, 700.00 W "
+        "| rotate | 25.000 | 40.0 |",
+        "| torch_bench_micro_2e16.json | NVIDIA H100 80GB HBM3, 700.00 W "
+        "| (key switches/s) | - | 40.0 |",
+        "| torch_bench_micro_cpu.json | card not recorded | add | 0.100 "
+        "| 10000.0 |"]
+    assert "N=65536 num_q=24 (60/56-bit primes), 10 iterations" in text
