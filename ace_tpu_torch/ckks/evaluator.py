@@ -1,10 +1,22 @@
 """CKKS homomorphic evaluator: the scheme-op layer.
 
 The Evaluator of `ace_tpu.ckks.evaluator` (the reference's
-ckks_evaluator.c) as eager PyTorch: the jitted op bundles of the JAX
-package become plain methods, its lax.scan over weight groups a Python
-loop. Every op keeps the JAX package's order of operations, so residues
-match it bit for bit on the same keys.
+ckks_evaluator.c) in PyTorch. Every op keeps the JAX package's order of
+operations, so residues match it bit for bit on the same keys.
+
+Op programs. As in ace_tpu, each op of the main path (rotate and
+conjugate, mul, rescale, mul_plain, add_const and the four bundles)
+runs as one program, cached in `_jit_cache` under ace_tpu's static key
+(("rot", auto_idx, level), ("mulrl", level), ...) and built by the
+`_mk_*` builder of the same name: a function of the ciphertext, the
+plaintext or message data and the raw key planes (`_key_raw`), wrapped
+by utils/liftgraph.py into a CUDA graph captured at its second call and
+replayed after (on the CPU the function runs directly). Its lax.scan
+over weight groups is a Python loop. Keys are read by reference: when
+the rotation-key LRU evicts a key, the programs that captured it are
+dropped (`_drop_key_programs`). `programs=False` caches the plain
+functions instead; FheContext turns programs off under a mesh, whose
+mod-up and mod-down run collectives through the host.
 
 Exact-semantics sources (file:line in the reference):
   encrypt/decrypt:   ckks_encryptor.c:20-75, ckks_decryptor.c:18-57
@@ -28,6 +40,8 @@ poly.py's conversions only.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -38,24 +52,49 @@ from ace_tpu_torch.ckks.params import CkksParams
 from ace_tpu_torch.ops import modops, ntt
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
+from ace_tpu_torch.utils.liftgraph import GraphPool, Program, lift_graph
 
 
 class Evaluator:
     def __init__(self, params: CkksParams, keygen: KeyGenerator,
                  encoder: Encoder, max_bundle: int = 5,
-                 max_bundle_msg: int = 12):
+                 max_bundle_msg: int = 12, programs: bool = True):
         """max_bundle: rotations per rot_sum_jit and
         rot_ext_mac_groups_jit accumulation;
         max_bundle_msg: rotations per rot_mac_groups_msgs_jit bundle.
         Larger sets are chunked and the mod-downed partials summed, as
         in ace_tpu (whose defaults these are), which keeps the residues
-        identical to it and bounds the live extended-basis workspace."""
+        identical to it and bounds the live extended-basis workspace.
+        programs: run the ops as op programs (see the module docstring);
+        False runs the same functions eagerly, for comparison."""
         self.params = params
         self.crt = params.crt
-        self.keygen = keygen
         self.encoder = encoder
         self.max_bundle = max_bundle
         self.max_bundle_msg = max_bundle_msg
+        self.programs = programs
+        # op programs by static structure (op, level, rotation indices, ...)
+        self._jit_cache: dict = {}
+        self._pool = None  # the programs' GraphPool, made at first use
+        self._keygen = None
+        self.keygen = keygen
+
+    @property
+    def keygen(self) -> KeyGenerator:
+        return self._keygen
+
+    @keygen.setter
+    def keygen(self, kg: KeyGenerator) -> None:
+        """The key generator, whose LRU evictions drop the programs that
+        captured the evicted key (tests swap in a key generator holding
+        another package's keys). Swapping in another one drops every
+        program: they captured the old one's keys."""
+        if kg is self._keygen:
+            return
+        self._jit_cache.clear()
+        self._keygen = kg
+        if kg is not None:
+            kg.on_evict(self._drop_key_programs)
 
     # -- encrypt / decrypt ----------------------------------------------
 
@@ -139,19 +178,41 @@ class Evaluator:
         contributes c to every slot of c0."""
         c = self._const_int(val, a.sf_degree)
         level = a.level
-        idx = self.crt.local(range(level))
-        q, _, _ = self.crt.mod_arrays(idx)
-        res = self.crt.column([c % self.crt.q_primes[g] for g in idx])
-        d0 = modops.add_mod(a.c0.data, res, q)
+        # the residues of c: the program's input, not a captured constant
+        res = self.crt.column([c % self.crt.q_primes[g]
+                               for g in self.crt.local(range(level))])
+        fn = self._get_jit(("addc", level), self._mk_add_scalar, level)
+        d0 = fn(a.c0.data, res)
         return Ciphertext(RnsPoly(d0, level, 0, True), a.c1,
                           a.scaling_factor, a.sf_degree, a.slots)
 
+    def _mk_add_scalar(self, level: int):
+        q, _, _ = self.crt.mod_arrays(self.crt.local(range(level)))
+
+        def impl(c0, res):
+            return modops.add_mod(c0, res, q)
+
+        return self._lift(impl)
+
     def mul_plain(self, a: Ciphertext, plain: Plaintext) -> Ciphertext:
         level, num_p = a.level, a.c0.num_p
-        p = RnsPoly(plain.poly.data, level, num_p, True)
-        return Ciphertext(P.mul(a.c0, p, self.crt), P.mul(a.c1, p, self.crt),
+        fn = self._get_jit(("mp", level, num_p), self._mk_mul_plain,
+                           level, num_p)
+        d0, d1 = fn(a.c0.data, a.c1.data, plain.poly.data)
+        return Ciphertext(RnsPoly(d0, level, num_p, True),
+                          RnsPoly(d1, level, num_p, True),
                           a.scaling_factor * plain.scaling_factor,
                           a.sf_degree + plain.sf_degree, a.slots)
+
+    def _mk_mul_plain(self, level: int, num_p: int):
+        crt = self.crt
+
+        def impl(c0, c1, pl):
+            p = RnsPoly(pl, level, num_p, True)
+            return (P.mul(RnsPoly(c0, level, num_p, True), p, crt).data,
+                    P.mul(RnsPoly(c1, level, num_p, True), p, crt).data)
+
+        return self._lift(impl)
 
     def mul_const(self, a: Ciphertext, val: float) -> Ciphertext:
         """Multiply by a broadcast scalar: per-limb Shoup scalar multiply
@@ -234,8 +295,32 @@ class Evaluator:
                           c3.scaling_factor, c3.sf_degree, c3.slots)
 
     def mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        """mul3 + relinearize."""
-        return self.relinearize(self.mul3(a, b))
+        """mul3 + relinearize as one program, ("mulrl", level)."""
+        a, b = self._adjust(a, b)
+        level = a.level
+        fn = self._get_jit(("mulrl", level), self._mk_mul_relin, level)
+        kb, ka = self._key_raw(self.keygen.relin_key)
+        d0, d1 = fn(a.c0.data, a.c1.data, b.c0.data, b.c1.data, kb, ka)
+        return Ciphertext(RnsPoly(d0, level, 0, True),
+                          RnsPoly(d1, level, 0, True),
+                          a.scaling_factor * b.scaling_factor,
+                          a.sf_degree + b.sf_degree, a.slots)
+
+    def _mk_mul_relin(self, level: int):
+        crt = self.crt
+
+        ev = weakref.proxy(self)
+
+        def impl(a0, a1, b0, b1, kb, ka):
+            pa0, pa1, pb0, pb1 = (RnsPoly(d, level, 0, True)
+                                  for d in (a0, a1, b0, b1))
+            c0 = P.mul(pa0, pb0, crt)
+            c1 = P.add(P.mul(pa0, pb1, crt), P.mul(pa1, pb0, crt), crt)
+            c2 = P.mul(pa1, pb1, crt)
+            s0, s1 = ev._switch_key(ev._key_of(kb, ka), c2)
+            return P.add(s0, c0, crt).data, P.add(s1, c1, crt).data
+
+        return self._lift(impl, refs=(4, 5))
 
     def square(self, a: Ciphertext) -> Ciphertext:
         return self.mul(a, a)
@@ -244,9 +329,21 @@ class Evaluator:
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
         assert a.level > 1
-        return Ciphertext(P.rescale(a.c0, self.crt), P.rescale(a.c1, self.crt),
+        fn = self._get_jit(("rs", a.level), self._mk_rescale, a.level)
+        d0, d1 = fn(a.c0.data, a.c1.data)
+        return Ciphertext(RnsPoly(d0, a.level - 1, 0, True),
+                          RnsPoly(d1, a.level - 1, 0, True),
                           a.scaling_factor / self.params.scaling_factor,
                           a.sf_degree - 1, a.slots)
+
+    def _mk_rescale(self, level: int):
+        crt = self.crt
+
+        def impl(c0, c1):
+            return (P.rescale(RnsPoly(c0, level, 0, True), crt).data,
+                    P.rescale(RnsPoly(c1, level, 0, True), crt).data)
+
+        return self._lift(impl)
 
     def upscale(self, a: Ciphertext, mod_size: int) -> Ciphertext:
         """Multiply by an encoding of 1.0 at scale 2^mod_size
@@ -286,23 +383,43 @@ class Evaluator:
 
     def rotate(self, a: Ciphertext, rotation: int) -> Ciphertext:
         """Slot rotation: keyswitch c1, add c0, then automorphism
-        (Fast_rotate, ckks_evaluator.c:507-545)."""
+        (Fast_rotate, ckks_evaluator.c:507-545). One program per
+        (automorphism index, level)."""
         if rotation == 0:
             return a
-        return self._key_switch_auto(a, *self.keygen.rot_key(rotation))
+        return self._rotate_by(a, *self.keygen.rot_key(rotation))
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
-        """Conjugation: key switch, then automorphism 2N-1, as rotate."""
-        return self._key_switch_auto(a, *self.keygen.conj_key())
+        """Conjugation: key switch, then automorphism 2N-1, through the
+        rotate program."""
+        return self._rotate_by(a, *self.keygen.conj_key())
 
-    def _key_switch_auto(self, a: Ciphertext, auto_idx: int,
-                         key: SwitchKey) -> Ciphertext:
-        crt = self.crt
-        s0, s1 = self._switch_key(key, a.c1)
-        t0 = P.add(s0, a.c0, crt)
-        return Ciphertext(P.automorphism(t0, auto_idx, crt),
-                          P.automorphism(s1, auto_idx, crt),
+    def _rotate_by(self, a: Ciphertext, auto_idx: int,
+                   key: SwitchKey) -> Ciphertext:
+        level = a.level
+        pkey = ("rot", auto_idx, level)
+        fn = self._get_jit(pkey, self._mk_rotate, auto_idx, level)
+        # the key's own fetch made it the LRU's newest: it cannot have
+        # been evicted, so the program needs no _run check
+        kb, ka = self._key_raw(key)
+        d0, d1 = fn(a.c0.data, a.c1.data, kb, ka)
+        return Ciphertext(RnsPoly(d0, level, 0, True),
+                          RnsPoly(d1, level, 0, True),
                           a.scaling_factor, a.sf_degree, a.slots)
+
+    def _mk_rotate(self, auto_idx: int, level: int):
+        crt = self.crt
+
+        ev = weakref.proxy(self)
+
+        def impl(c0, c1, kb, ka):
+            s0, s1 = ev._switch_key(ev._key_of(kb, ka),
+                                      RnsPoly(c1, level, 0, True))
+            t0 = P.add(s0, RnsPoly(c0, level, 0, True), crt)
+            return (P.automorphism(t0, auto_idx, crt).data,
+                    P.automorphism(s1, auto_idx, crt).data)
+
+        return self._lift(impl, refs=(2, 3))
 
     def rotations_hoisted(self, a: Ciphertext,
                           rotations: list[int]) -> list[Ciphertext]:
@@ -391,58 +508,162 @@ class Evaluator:
                           P.mod_down(a.c1, self.crt),
                           a.scaling_factor, a.sf_degree, a.slots)
 
-    def _ext_rotations(self, ct: Ciphertext, rots: list) -> tuple:
-        """The QP-basis rotations of ct for each r in rots, as two lists
-        (c0, c1) of data tensors [LK, N]: one digit decompose/mod-up and
-        one P*c0 shared by all rotations; each key-switches c1 into QP,
-        adds P*c0, then applies its automorphism. Rotation 0 is the plain
-        embedding _p_scale(., True). The ext rotation of every bundle."""
+    def _ext_rotations(self, cin0: RnsPoly, cin1: RnsPoly, auto_idxs,
+                       keys: list) -> tuple:
+        """The QP-basis rotations of (cin0, cin1) by each automorphism of
+        auto_idxs (keys: the switching key of each, None at index 1), as
+        two lists (c0, c1) of data tensors [LK, N]: one digit
+        decompose/mod-up and one P*c0 shared by all rotations; each
+        key-switches c1 into QP, adds P*c0, then applies its automorphism.
+        Index 1 is the plain embedding _p_scale(., True). The ext
+        rotation of every bundle."""
         crt = self.crt
-        level = ct.level
-        cin0 = RnsPoly(ct.c0.data, level, 0, True)
-        cin1 = RnsPoly(ct.c1.data, level, 0, True)
         ext0, ext1 = [], []
         digits = c0p = None
-        for r in rots:
-            if r == 0:
+        for ai, key in zip(auto_idxs, keys):
+            if ai == 1:
                 ext0.append(self._p_scale(cin0, True).data)
                 ext1.append(self._p_scale(cin1, True).data)
                 continue
             if digits is None:
                 digits = self._switch_key_digits(cin1)
                 c0p = self._p_scale(cin0).data
-            ai, key = self.keygen.rot_key(r)
-            e0, e1 = self._switch_key_ext(key, digits, level)
+            e0, e1 = self._switch_key_ext(key, digits, cin0.num_q)
             order = crt.auto_order(ai)
             ext0.append(self._add_p_c0(e0, c0p).index_select(1, order))
             ext1.append(e1.data.index_select(1, order))
         return ext0, ext1
+
+    # -- op programs ---------------------------------------------------------
+
+    def _get_jit(self, key, builder, *args):
+        """The op program cached under `key`, built by builder(*args) on
+        a miss (ace_tpu's _get_jit)."""
+        if key not in self._jit_cache:
+            self._jit_cache[key] = builder(*args)
+        return self._jit_cache[key]
+
+    def _lift(self, impl, refs=()):
+        """impl as an op program (its arguments at `refs` read by
+        reference), or impl itself with programs off."""
+        if not self.programs:
+            return impl
+        if self._pool is None:
+            self._pool = GraphPool(self.crt.device)
+        return lift_graph(impl, self._pool, refs)
+
+    def _run(self, pkey, fn, keys: list, *args):
+        """fn(*args) for the program cached under pkey that reads the
+        switching keys `keys`. When the LRU evicted one of them while this
+        op fetched the others (a bundle with more keys than the LRU
+        holds), the program is dropped after the call, so that it never
+        keeps a key the LRU let go."""
+        out = fn(*args)
+        if any(k.evicted for k in keys):
+            self._jit_cache.pop(pkey, None)
+        return out
+
+    def _drop_key_programs(self, key: SwitchKey) -> None:
+        """Drop every program that captured `key` (the LRU evicted it)."""
+        ids = {id(p.data) for p in (*key.b, *key.a)}
+        for k in [k for k, p in self._jit_cache.items()
+                  if isinstance(p, Program) and p.holds(ids)]:
+            del self._jit_cache[k]
+
+    def program_stats(self) -> dict:
+        """Programs cached, and the pool's counts (GraphPool.stats):
+        programs lifted, graphs captured, capture seconds, replays,
+        staging and graph-pool bytes."""
+        if self._pool is None:
+            st = dict(programs=0, captures=0, capture_s=0.0, replays=0,
+                      staging_bytes=0, pool_bytes=None)
+        else:
+            st = self._pool.stats()
+        return dict(st, cached=len(self._jit_cache))
+
+    def _key_raw(self, key: SwitchKey):
+        """Full key digit planes as raw tensors (program arguments read
+        by reference; _switch_key_ext does the per-level slicing)."""
+        return [kb.data for kb in key.b], [ka.data for ka in key.a]
+
+    def _key_of(self, kb: list, ka: list) -> SwitchKey:
+        """The SwitchKey over raw digit planes (_key_raw's inverse)."""
+        crt = self.crt
+        return SwitchKey(
+            [RnsPoly(d, crt.num_q, crt.num_p, True) for d in kb],
+            [RnsPoly(d, crt.num_q, crt.num_p, True) for d in ka])
+
+    def _keys_of(self, auto_idxs, keys_b: list, keys_a: list) -> list:
+        """One SwitchKey per automorphism of auto_idxs from the raw planes
+        of the non-identity ones, None at index 1."""
+        it = iter(zip(keys_b, keys_a))
+        return [None if ai == 1 else self._key_of(*next(it))
+                for ai in auto_idxs]
+
+    def _rot_keys(self, rots: list) -> tuple:
+        """(automorphism index per rotation, 1 for rotation 0; the
+        switching keys of the others, in order), fetched in that order."""
+        auto_idxs, keys = [], []
+        for r in rots:
+            if r == 0:
+                auto_idxs.append(1)
+                continue
+            ai, key = self.keygen.rot_key(r)
+            auto_idxs.append(ai)
+            keys.append(key)
+        return auto_idxs, keys
+
+    def _raw_planes(self, keys: list) -> tuple:
+        """(b planes, a planes) of each key: the programs' key lists."""
+        raw = [self._key_raw(k) for k in keys]
+        return [kb for kb, _ in raw], [ka for _, ka in raw]
 
     # -- the two bundles of the conv path ---------------------------------
 
     def rot_sum_jit(self, items: list) -> Ciphertext:
         """sum_i rot(ct_i, r_i) with one trailing mod-down per chunk of
         max_bundle rotations (mod-down hoisting across different inputs,
-        the Add_ciphertext-in-QP pattern of ut_ksw_opt.cxx:349-375)."""
+        the Add_ciphertext-in-QP pattern of ut_ksw_opt.cxx:349-375), one
+        program per (automorphisms, level)."""
         if len(items) > self.max_bundle:
             acc = None
             for s in range(0, len(items), self.max_bundle):
                 part = self.rot_sum_jit(items[s:s + self.max_bundle])
                 acc = part if acc is None else self.add(acc, part)
             return acc
-        crt = self.crt
         level = items[0][0].level
-        acc0 = acc1 = None
-        for ct, r in items:
+        for ct, _ in items:
             assert ct.level == level, "rot_sum inputs must share a level"
-            (d0,), (d1,) = self._ext_rotations(ct, [r])
-            e0 = RnsPoly(d0, level, crt.num_p, True)
-            e1 = RnsPoly(d1, level, crt.num_p, True)
-            acc0 = e0 if acc0 is None else P.add(acc0, e0, crt)
-            acc1 = e1 if acc1 is None else P.add(acc1, e1, crt)
+        auto_idxs, keys = self._rot_keys([r for _, r in items])
+        pkey = ("rsum", tuple(auto_idxs), level)
+        fn = self._get_jit(pkey, self._mk_rot_sum, tuple(auto_idxs), level)
+        cs = [(ct.c0.data, ct.c1.data) for ct, _ in items]
+        d0, d1 = self._run(pkey, fn, keys, cs, *self._raw_planes(keys))
         ct0 = items[0][0]
-        return Ciphertext(P.mod_down(acc0, crt), P.mod_down(acc1, crt),
+        return Ciphertext(RnsPoly(d0, level, 0, True),
+                          RnsPoly(d1, level, 0, True),
                           ct0.scaling_factor, ct0.sf_degree, ct0.slots)
+
+    def _mk_rot_sum(self, auto_idxs: tuple, level: int):
+        crt = self.crt
+        num_p = crt.num_p
+
+        ev = weakref.proxy(self)
+
+        def impl(cs, keys_b, keys_a):
+            keys = ev._keys_of(auto_idxs, keys_b, keys_a)
+            acc0 = acc1 = None
+            for (c0, c1), ai, key in zip(cs, auto_idxs, keys):
+                (d0,), (d1,) = ev._ext_rotations(
+                    RnsPoly(c0, level, 0, True), RnsPoly(c1, level, 0, True),
+                    [ai], [key])
+                e0 = RnsPoly(d0, level, num_p, True)
+                e1 = RnsPoly(d1, level, num_p, True)
+                acc0 = e0 if acc0 is None else P.add(acc0, e0, crt)
+                acc1 = e1 if acc1 is None else P.add(acc1, e1, crt)
+            return P.mod_down(acc0, crt).data, P.mod_down(acc1, crt).data
+
+        return self._lift(impl, refs=(1, 2))
 
     def rot_ext_mac_groups_jit(self, ct: Ciphertext, rots: list,
                                plain_groups: list) -> list:
@@ -450,8 +671,9 @@ class Evaluator:
         plaintexts given as extended-basis Plaintexts (or None where a
         group does not use a rotation): one digit decompose/mod-up for
         all rotations, the MACs in the QP basis, one mod-down per group
-        and component. Rotation sets beyond max_bundle are chunked and
-        the mod-downed partials summed, as in ace_tpu; a group with no
+        and component, as one program per (automorphisms, usage pattern,
+        level). Rotation sets beyond max_bundle are chunked and the
+        mod-downed partials summed, as in ace_tpu; a group with no
         plaintext gives a zero ciphertext at the others' scale."""
         if not plain_groups or all(all(p is None for p in grp)
                                    for grp in plain_groups):
@@ -487,26 +709,56 @@ class Evaluator:
                         else self.add(total[g], part)
             ref = next(x for x in total if x is not None)
             return [self.sub(ref, ref) if v is None else v for v in total]
-        crt = self.crt
-        level, num_p = ct.level, crt.num_p
-        ext0, ext1 = self._ext_rotations(ct, rots)
+        level = ct.level
+        auto_idxs, keys = self._rot_keys(rots)
+        pattern = tuple(tuple(p is not None for p in grp)
+                        for grp in plain_groups)
+        pkey = ("rmg", tuple(auto_idxs), pattern, level)
+        fn = self._get_jit(pkey, self._mk_rot_mac_groups, tuple(auto_idxs),
+                           pattern, level)
+        pls = [p.poly.data for grp in plain_groups for p in grp
+               if p is not None]
+        raw = self._run(pkey, fn, keys, ct.c0.data, ct.c1.data,
+                        *self._raw_planes(keys), pls)
         outs = []
-        for grp in plain_groups:
-            acc0 = acc1 = None
-            for e0, e1, pl in zip(ext0, ext1, grp):
-                if pl is None:
-                    continue
-                p = RnsPoly(pl.poly.data, level, num_p, True)
-                t0 = P.mul(RnsPoly(e0, level, num_p, True), p, crt)
-                t1 = P.mul(RnsPoly(e1, level, num_p, True), p, crt)
-                acc0 = t0 if acc0 is None else P.add(acc0, t0, crt)
-                acc1 = t1 if acc1 is None else P.add(acc1, t1, crt)
+        for grp, (d0, d1) in zip(plain_groups, raw):
             pl_scale = next(p.scaling_factor for p in grp if p is not None)
-            outs.append(Ciphertext(P.mod_down(acc0, crt),
-                                   P.mod_down(acc1, crt),
+            outs.append(Ciphertext(RnsPoly(d0, level, 0, True),
+                                   RnsPoly(d1, level, 0, True),
                                    ct.scaling_factor * pl_scale,
                                    ct.sf_degree + 1, ct.slots))
         return outs
+
+    def _mk_rot_mac_groups(self, auto_idxs: tuple, pattern: tuple,
+                           level: int):
+        """auto_idxs[i]: automorphism index per rotation (1 = identity,
+        no key switch); pattern[g][i]: whether group g uses rotation i."""
+        crt = self.crt
+        num_p = crt.num_p
+
+        ev = weakref.proxy(self)
+
+        def impl(c0, c1, keys_b, keys_a, pls):
+            ext0, ext1 = ev._ext_rotations(
+                RnsPoly(c0, level, 0, True), RnsPoly(c1, level, 0, True),
+                auto_idxs, ev._keys_of(auto_idxs, keys_b, keys_a))
+            pl_it = iter(pls)
+            outs = []
+            for uses in pattern:
+                acc0 = acc1 = None
+                for e0, e1, used in zip(ext0, ext1, uses):
+                    if not used:
+                        continue
+                    p = RnsPoly(next(pl_it), level, num_p, True)
+                    t0 = P.mul(RnsPoly(e0, level, num_p, True), p, crt)
+                    t1 = P.mul(RnsPoly(e1, level, num_p, True), p, crt)
+                    acc0 = t0 if acc0 is None else P.add(acc0, t0, crt)
+                    acc1 = t1 if acc1 is None else P.add(acc1, t1, crt)
+                outs.append((P.mod_down(acc0, crt).data,
+                             P.mod_down(acc1, crt).data))
+            return outs
+
+        return self._lift(impl, refs=(2, 3))
 
     def _lift_msgs(self, msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
         """int64 messages [..., N] -> canonical residues [..., LK, N] at
@@ -539,7 +791,8 @@ class Evaluator:
         plaintexts given as level-independent int64 messages [G, R, N]
         (dense; zero rows contribute exact zeros): one digit
         decompose/mod-up for all rotations, the plaintext lift + NTT and
-        the MACs in the QP basis, one mod-down per group and component.
+        the MACs in the QP basis, one mod-down per group and component,
+        as one program per (automorphisms, G, level).
 
         Rotation sets beyond max_bundle_msg are chunked and the
         mod-downed partials summed, which bounds the R live keyswitch
@@ -553,66 +806,118 @@ class Evaluator:
                 outs = part if outs is None else \
                     [self.add(a, b) for a, b in zip(outs, part)]
             return outs
-        crt = self.crt
-        level, num_p = ct.level, crt.num_p
-        idx = crt.local(crt.limbs(level, num_p))
-        ext0, ext1 = (torch.stack(e) for e in  # [R, LK, N]
-                      self._ext_rotations(ct, rots))
-        outs = []
+        level = ct.level
+        auto_idxs, keys = self._rot_keys(rots)
+        G = int(msgs.shape[0])
+        pkey = ("rmgm", tuple(auto_idxs), G, level)
+        fn = self._get_jit(pkey, self._mk_rot_mac_groups_msgs,
+                           tuple(auto_idxs), level)
+        outs = self._run(pkey, fn, keys, ct.c0.data, ct.c1.data,
+                         *self._raw_planes(keys), msgs)
         pl_scale = self.params.scaling_factor
-        for g in range(msgs.shape[0]):  # the lax.scan over groups
-            acc0, acc1 = self._mac_msgs(msgs[g], ext0, ext1, idx)
-            o0 = P.mod_down(RnsPoly(acc0, level, num_p, True), crt)
-            o1 = P.mod_down(RnsPoly(acc1, level, num_p, True), crt)
-            outs.append(Ciphertext(o0, o1, ct.scaling_factor * pl_scale,
-                                   ct.sf_degree + 1, ct.slots))
-        return outs
+        return [Ciphertext(RnsPoly(o0, level, 0, True),
+                           RnsPoly(o1, level, 0, True),
+                           ct.scaling_factor * pl_scale, ct.sf_degree + 1,
+                           ct.slots) for o0, o1 in outs]
+
+    def _mk_rot_mac_groups_msgs(self, auto_idxs: tuple, level: int):
+        """The bundle of rot_mac_groups_msgs_jit: the plaintext lift
+        reproduces encoder.encode bit-exactly (_lift_msgs, then the same
+        NTT tables); ace_tpu's lax.scan over groups is a loop."""
+        crt = self.crt
+        num_p = crt.num_p
+        idx = crt.local(crt.limbs(level, num_p))
+
+        ev = weakref.proxy(self)
+
+        def impl(c0, c1, keys_b, keys_a, msgs):
+            ext0, ext1 = (torch.stack(e) for e in  # [R, LK, N]
+                          ev._ext_rotations(
+                              RnsPoly(c0, level, 0, True),
+                              RnsPoly(c1, level, 0, True), auto_idxs,
+                              ev._keys_of(auto_idxs, keys_b, keys_a)))
+            outs = []
+            for g in range(msgs.shape[0]):
+                acc0, acc1 = ev._mac_msgs(msgs[g], ext0, ext1, idx)
+                outs.append((
+                    P.mod_down(RnsPoly(acc0, level, num_p, True), crt).data,
+                    P.mod_down(RnsPoly(acc1, level, num_p, True), crt).data))
+            return outs
+
+        return self._lift(impl, refs=(2, 3))
 
     # -- the bootstrap's BSGS level ---------------------------------------
 
     def bsgs_iter_jit(self, ct: Ciphertext, baby_rots: list,
                       giant_rots: list, msgs: torch.Tensor) -> Ciphertext:
         """One collapsed-FFT level of the bootstrap as baby-step/giant-step
-        rotations (Rotate_iteration, ckks_bootstrap_context.c:1237-1383),
-        with ace_tpu's _mk_bsgs_iter bookkeeping: baby rotations share one
-        digit decompose/mod-up and stay in the QP basis (rotation 0 is the
-        plain embedding _p_scale(., True)); group i's MACs against the
-        messages msgs[i] ([len(giant_rots), len(baby_rots), N] int64)
-        accumulate in QP; group i's c0 joins the extended `first`
-        accumulator by automorphism alone, and only its c1 is mod-downed
-        and key-switched for the giant rotation; one final mod-down per
-        component.
-
-        The baby keys are read one at a time (never stacked). Each
-        group's MACs are one _mac_msgs call."""
-        crt = self.crt
-        level, num_p = ct.level, crt.num_p
-        idx = crt.local(crt.limbs(level, num_p))
-        ext0, ext1 = (torch.stack(e) for e in  # [g, LK, N]
-                      self._ext_rotations(ct, baby_rots))
-
-        first = out0 = out1 = None
-        for i, r in enumerate(giant_rots):
-            acc0, acc1 = (RnsPoly(d, level, num_p, True) for d in
-                          self._mac_msgs(msgs[i], ext0, ext1, idx))
-            gai, gkey = self.keygen.rot_key(r) if r else (1, None)
-            if i == 0:
-                first, out1 = acc0, acc1
-            elif gai != 1:
-                c1q = P.mod_down(acc1, crt)
-                first = P.add(first, P.automorphism(acc0, gai, crt), crt)
-                e0, e1 = self._switch_key_ext(
-                    gkey, self._switch_key_digits(c1q), level)
-                a0 = P.automorphism(e0, gai, crt)
-                out0 = a0 if out0 is None else P.add(out0, a0, crt)
-                out1 = P.add(out1, P.automorphism(e1, gai, crt), crt)
-            else:
-                first = P.add(first, acc0, crt)
-                out1 = P.add(out1, acc1, crt)
-        out0 = first if out0 is None else P.add(out0, first, crt)
-        return Ciphertext(P.mod_down(out0, crt), P.mod_down(out1, crt),
+        rotations (Rotate_iteration, ckks_bootstrap_context.c:1237-1383)
+        as one program per (baby automorphisms, giant automorphisms,
+        level); msgs: [len(giant_rots), len(baby_rots), N] int64
+        messages. See _mk_bsgs_iter."""
+        level = ct.level
+        baby_idxs, baby_keys = self._rot_keys(baby_rots)
+        giant_idxs, giant_keys = self._rot_keys(giant_rots)
+        pkey = ("bsgs", tuple(baby_idxs), tuple(giant_idxs), level)
+        fn = self._get_jit(pkey, self._mk_bsgs_iter, tuple(baby_idxs),
+                           tuple(giant_idxs), level)
+        d0, d1 = self._run(pkey, fn, baby_keys + giant_keys, ct.c0.data,
+                           ct.c1.data, *self._raw_planes(baby_keys),
+                           *self._raw_planes(giant_keys), msgs)
+        return Ciphertext(RnsPoly(d0, level, 0, True),
+                          RnsPoly(d1, level, 0, True),
                           ct.scaling_factor * self.params.scaling_factor,
                           ct.sf_degree + 1, ct.slots)
+
+    def _mk_bsgs_iter(self, baby_idxs: tuple, giant_idxs: tuple,
+                      level: int):
+        """ace_tpu's _mk_bsgs_iter bookkeeping: baby rotations share one
+        digit decompose/mod-up and stay in the QP basis (index 1 is the
+        plain embedding _p_scale(., True)); group i's MACs against the
+        messages msgs[i] accumulate in QP; group i's c0 joins the
+        extended `first` accumulator by automorphism alone, and only its
+        c1 is mod-downed and key-switched for the giant rotation; one
+        final mod-down per component. The giant keys are taken in order
+        for the giant steps after the first, as in ace_tpu (the first
+        giant step is rotation 0). The baby keys are read one at a time
+        (never stacked); each group's MACs are one _mac_msgs call."""
+        crt = self.crt
+        num_p = crt.num_p
+        idx = crt.local(crt.limbs(level, num_p))
+
+        ev = weakref.proxy(self)
+
+        def impl(c0, c1, baby_kb, baby_ka, giant_kb, giant_ka, msgs):
+            ext0, ext1 = (torch.stack(e) for e in  # [g, LK, N]
+                          ev._ext_rotations(
+                              RnsPoly(c0, level, 0, True),
+                              RnsPoly(c1, level, 0, True), baby_idxs,
+                              ev._keys_of(baby_idxs, baby_kb, baby_ka)))
+            first = out0 = out1 = None
+            gi = 0
+            for i, gai in enumerate(giant_idxs):
+                acc0, acc1 = (RnsPoly(d, level, num_p, True) for d in
+                              ev._mac_msgs(msgs[i], ext0, ext1, idx))
+                if i == 0:
+                    first, out1 = acc0, acc1
+                elif gai != 1:
+                    gkey = ev._key_of(giant_kb[gi], giant_ka[gi])
+                    gi += 1
+                    c1q = P.mod_down(acc1, crt)
+                    first = P.add(first, P.automorphism(acc0, gai, crt),
+                                  crt)
+                    e0, e1 = ev._switch_key_ext(
+                        gkey, ev._switch_key_digits(c1q), level)
+                    a0 = P.automorphism(e0, gai, crt)
+                    out0 = a0 if out0 is None else P.add(out0, a0, crt)
+                    out1 = P.add(out1, P.automorphism(e1, gai, crt), crt)
+                else:
+                    first = P.add(first, acc0, crt)
+                    out1 = P.add(out1, acc1, crt)
+            out0 = first if out0 is None else P.add(out0, first, crt)
+            return P.mod_down(out0, crt).data, P.mod_down(out1, crt).data
+
+        return self._lift(impl, refs=(2, 3, 4, 5))
 
 
 def _sum_mod(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

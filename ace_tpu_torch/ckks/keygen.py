@@ -28,6 +28,7 @@ of the unsharded key.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -53,9 +54,11 @@ class PublicKey:
 
 @dataclasses.dataclass
 class SwitchKey:
-    """One (b, a) pair per KSW digit, each over the full Q ∪ P basis."""
+    """One (b, a) pair per KSW digit, each over the full Q ∪ P basis.
+    `evicted`: the rotation-key LRU has let this key go."""
     b: list
     a: list
+    evicted: bool = False
 
     @property
     def nbytes(self) -> int:
@@ -242,10 +245,23 @@ class KeyGenerator:
         sk2 = P.mul(self.sk.ntt_sk, self.sk.ntt_sk, self.crt)
         return self._gen_switching_key(sk2, self.sk.ntt_sk)
 
+    def on_evict(self, hook) -> None:
+        """Call hook(key) whenever the LRU evicts a rotation key (a bound
+        method, held weakly: the evaluator whose programs captured the
+        key)."""
+        hooks = self.__dict__.setdefault("_evict_hooks", [])
+        hooks[:] = [r for r in hooks if r() is not None]
+        hooks.append(weakref.WeakMethod(hook))
+
     def _lru_insert(self, auto_idx: int, key: SwitchKey) -> None:
         if (auto_idx not in self._rot_keys and self.max_rot_keys
                 and len(self._rot_keys) >= self.max_rot_keys):
-            del self._rot_keys[next(iter(self._rot_keys))]
+            old = self._rot_keys.pop(next(iter(self._rot_keys)))
+            old.evicted = True
+            for ref in self.__dict__.get("_evict_hooks", ()):
+                hook = ref()
+                if hook is not None:
+                    hook(old)
         self._rot_keys[auto_idx] = key  # (re)insert as most recent
 
     def rot_key(self, rotation: int) -> tuple[int, SwitchKey]:

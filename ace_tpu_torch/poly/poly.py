@@ -148,21 +148,28 @@ def automorphism(a: RnsPoly, auto_idx: int, ctx: CrtContext) -> RnsPoly:
         order = ctx.auto_order(auto_idx)
         return RnsPoly(a.data.index_select(1, order), a.num_q, a.num_p,
                        True)
+    gather, negate = ctx.memo(("coeff_auto", auto_idx, n),
+                              lambda: _coeff_auto_maps(auto_idx, n, ctx))
+    q, _, _ = _mods(a, ctx)
+    vals = a.data.index_select(1, gather)
+    return RnsPoly(torch.where(negate, modops.neg_mod(vals, q), vals),
+                   a.num_q, a.num_p, False)
+
+
+def _coeff_auto_maps(auto_idx: int, n: int, ctx: CrtContext) -> tuple:
+    """The coefficient-form automorphism's gather map [N] and sign mask
+    [1, N] on the context's device: res[dest[j]] = ±a[j]. Cached by the
+    caller (CrtContext.memo), so no call after the first copies from the
+    host (an op program's capture forbids that copy)."""
     m = 2 * n
     shift = (np.arange(n, dtype=np.int64) * auto_idx) % m
     dest = np.where(shift < n, shift, shift - n)
-    negate_dest = shift >= n
-    # build gather map: res[dest[j]] = ±a[j]
     gather = np.zeros(n, dtype=np.int64)
     gather[dest] = np.arange(n)
     negate = np.zeros(n, dtype=bool)
-    negate[dest] = negate_dest
-    q, _, _ = _mods(a, ctx)
-    dev = a.data.device
-    vals = a.data.index_select(1, torch.as_tensor(gather, device=dev))
-    return RnsPoly(torch.where(torch.as_tensor(negate, device=dev)[None, :],
-                               modops.neg_mod(vals, q), vals),
-                   a.num_q, a.num_p, False)
+    negate[dest] = shift >= n
+    return (torch.as_tensor(gather, device=ctx.device),
+            torch.as_tensor(negate, device=ctx.device)[None, :])
 
 
 # ---------------------------------------------------------------------------

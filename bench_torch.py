@@ -15,7 +15,9 @@ keys and the bootstrap tables) in results/torch_resnet20_cifar10.json,
 the rows of `python3 run_resnet_torch.py --images 3 --json
 results/torch_resnet20_cifar10.json`. Every row must record this card's
 name (its `card`); a file that does not is refused. vs_baseline = the
-ACE reference binary's 1453.96 s/image on one Xeon thread / ours.
+ACE reference binary's 1453.96 s/image on one Xeon thread / ours. The
+rows' op-program counts (programs, capture seconds, graph-pool bytes)
+go to stderr.
 
 --ntt: the negacyclic NTT at N = 2^16 over 8 limbs of
 generate_q_primes(8, 60, 56, N), data from default_rng(0), through
@@ -188,8 +190,12 @@ def main(argv=None) -> int:
             raise SystemExit("the ResNet-20 figure is a card's: run on the "
                              "card, or give --ntt")
         with open(RESULT_JSON) as f:
-            line = resnet20_metric(json.load(f), here)
+            rows = json.load(f)
+        line = resnet20_metric(rows, here)
         err(f"# {RESULT_JSON}: median steady-state image on {here}")
+        for r in sorted(rows, key=lambda r: r["image"]):
+            err(f"# image {r['image']}: {r['seconds']:.2f} s, op programs "
+                f"{r.get('programs', 'not recorded')}")
         print(json.dumps(line))
         return 0
     cpu = bench_cpu_baseline(a.degree)

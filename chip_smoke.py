@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
 
-Eleven phases (9d after 9, then 10); any failure exits non-zero and
-prints no result line.
+Twelve phases (11 after 5; 9d after 9, then 10); any failure exits
+non-zero and prints no result line. The single-device evaluator runs
+its ops as op programs (CUDA graphs captured at an op's second call and
+replayed after, ckks/evaluator.py and utils/liftgraph.py), as the main
+path does: phases 3-8 and 10 run through them; phase 11 holds them
+against the eager path.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -66,12 +70,23 @@ prints no result line.
      baseline; K3 and K4 at bench_torch's [8, 65536] and over
      bench_micro_torch's whole chain [32, 65536] (24 q + 8 P primes),
      each equal word for word to its plain version, timed, and K1-K4
-     likewise at [32, 65536] and [24, 65536]; bench_torch's
+     likewise at [32, 65536] and [24, 65536], K1 and K2 timed there
+     (the rows' `ms_2e16`, `bound_ms_2e16`); bench_torch's
      chained NTT passes (NTT/s, vs_baseline); bench_micro_torch's context
      and ops, one rotate and one mul+relin+rescale decoded within 1e-4;
      the full bootstrap (2^15 slots) cold and warm and a 2^12-slot sparse
      one, decoded within 2e-2. The kernel rows' `launches_2e16` count
      its bench pass, ops and bootstraps.
+ 11. (run after 5) the op programs (see phase_programs) on phase 5's
+     context: each program kind (rot with a conjugate, mulrl, rs, mp,
+     addc, rsum, rmg, rmgm, bsgs) called three times on fresh inputs,
+     equal word for word to Evaluator(programs=False) on the same keys,
+     with equal kernel-counter growth; each kind's eager call and replay
+     timed; phase 5's bootstrap replayed against the eager one (equal
+     residues, decoded within 2e-2, timed and profiled for the idle
+     share); phase 4's ops[:6] replayed on its input, equal to phase 4's
+     output residues. The kernel rows' `launches_programs` count the
+     launches through programs there.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}.
@@ -459,7 +474,8 @@ def slice_model() -> dict:
 
 def phase_slice(sm: dict) -> dict:
     """Phase 4 on slice_model()'s model: cold (keys made on demand), then
-    warm. Returns the first inference's output residues for phase 9b."""
+    warm. Returns the first inference's output residues for phase 9b,
+    and the model and that inference's input ciphertext for phase 11d."""
     import torch
     from ace_tpu_torch.models import resnet as M
     from ace_tpu_torch.ops import (modops, read_counters, read_limbs,
@@ -488,6 +504,7 @@ def phase_slice(sm: dict) -> dict:
     t_inf = time.perf_counter() - t0
     launches = read_counters()
     limbs = read_limbs()
+    ct_in = ctx.get_input_data("input")
     ct = ctx.get_output_data("output")
     residues = (modops.to_numpy(ct.c0.data), modops.to_numpy(ct.c1.data))
     t_keys = TIMING.seconds("RTM_ROT_KEY_REGEN")
@@ -522,13 +539,15 @@ def phase_slice(sm: dict) -> dict:
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched in the slice: {idle}")
+    log(f"[phase 4] op programs: {ctx.evaluator.program_stats()}")
     return {"launches": launches, "context_s": t_ctx, "inference_s": t_inf,
             "rot_keygen_s": t_keys, "warm_inference_s": t_warm,
-            "max_err": errs[0], "max_plain": scale, "residues": residues}
+            "max_err": errs[0], "max_plain": scale, "residues": residues,
+            "model": model, "input": ct_in}
 
 
 def profile_inference(run, unprofiled_s: float, tag: str,
-                      device="cuda"):
+                      device="cuda", stats: dict | None = None):
     """One more warm run under torch.profiler: kernel time by name and
     the device's busy share. The profiler records the device's activity
     only (no CPU op events, which a run of a million launches takes
@@ -538,7 +557,8 @@ def profile_inference(run, unprofiled_s: float, tag: str,
     warm run (a rough figure for a real one). The run always happens,
     any failure of it fails the phase, and its output is returned for
     the phase's check; only a profiler that cannot start or reports
-    nothing is logged as not measured."""
+    nothing is logged as not measured. `stats`, if given, receives the
+    profiled run's wall and kernel-busy seconds and its idle share."""
     import contextlib
     import torch
     from ace_tpu_torch.utils.card import syncer
@@ -579,6 +599,8 @@ def profile_inference(run, unprofiled_s: float, tag: str,
         log(f"{tag} profile: no device time recorded (not measured)")
         return out
     busy = sum(dev_ns.values()) / 1e9
+    if stats is not None:
+        stats.update(wall_s=wall, busy_s=busy, idle=1 - busy / wall)
     log(f"{tag} profiled warm run {wall:.2f} s wall, kernels busy "
         f"{busy:.2f} s: idle {100 * (1 - busy / wall):.0f}% of the profiled "
         f"run; busy {100 * busy / unprofiled_s:.0f}% of the unprofiled "
@@ -600,7 +622,8 @@ def phase_bootstrap() -> dict:
     FheContext.bootstrap cold (the bootstrap tables and its 91 rotation
     keys and the conjugation key made on demand), then warm. Each output
     must regain levels and decode within 2e-2 (that test's bound); every
-    kernel's counter must grow."""
+    kernel's counter must grow. Returns the context, the input and its
+    message for phase 11c."""
     import torch
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.ops import read_counters, reset_counters
@@ -654,7 +677,7 @@ def phase_bootstrap() -> dict:
         raise AssertionError(f"kernels never launched in the bootstrap: "
                              f"{idle}")
     return {"cold_s": t_cold, "warm_s": t_warm, "max_err": max(errs),
-            "launches": launches}
+            "launches": launches, "ctx": ctx, "input": ct, "msg": msg}
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +747,12 @@ def phase_resnet20(device=None, graph=None, img=None,
         f"{t_setup:.1f} s; launches {st['launches']}; NTT limbs "
         f"{st['limbs']}")
     log(TIMING.report(st["timing"]))
+    programs = ctx.evaluator.program_stats()
+    log(f"[phase 6] op programs: {programs}")
+    # allocated misses the graph pool's segments once the captures end
+    # (replays use them without the allocator); reserved counts them
     peak = torch.cuda.max_memory_allocated() / 2**30 if gpu else 0.0
+    reserved = torch.cuda.max_memory_reserved() / 2**30 if gpu else 0.0
     scale = st["max_plain"]
     log(f"[phase 6] logits "
         f"{np.array2string(np.array(st['logits']), precision=4)}")
@@ -734,7 +762,8 @@ def phase_resnet20(device=None, graph=None, img=None,
         f"limit 0.1 * max|plain| = {0.1 * scale:.4e}; argmax agrees "
         f"{row['argmax_agree']}; bootstraps {st['bootstraps']}; "
         f"{st['rotation_keys_held']} rotation keys held; peak device "
-        f"memory {peak:.2f} GiB")
+        f"memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
+        f"(graph pool included)")
     fails = zoo.gate_failures(row, classes, bootstraps, 0.1 * scale,
                               kernels=False)
     if not row["argmax_agree"]:
@@ -745,7 +774,8 @@ def phase_resnet20(device=None, graph=None, img=None,
             "rot_keygen_s": st["rotation_key_seconds"],
             "keys": st["rotation_keys"], "max_err": row["max_err"],
             "max_plain": scale, "peak_gib": peak,
-            "bootstraps": st["bootstraps"]}
+            "peak_reserved_gib": reserved,
+            "bootstraps": st["bootstraps"], "programs": programs}
 
 
 # ---------------------------------------------------------------------------
@@ -1121,6 +1151,57 @@ def kernels_exact_at(crt, rows, what: str, tag: str) -> None:
         raise AssertionError(f"K4(K3(x)) != x at L = {L}")
     log(f"{tag} [{L}, {n}] ({what}): K1-K4 equal to their plain versions, "
         f"K4(K3(x)) == x")
+
+
+def k1_k2_timed(crt, rows, what: str, tag: str) -> dict:
+    """K1 and K2 over the limbs `rows` of crt timed as phase 2 times them
+    (20 launches through the C launcher between CUDA events, cycling over
+    4 input sets, median of 10) with phase 2's bound: bytes of each input
+    read once and the output written once, IMADs per product. Returns
+    {"K1": (ms, bound_ms, bound_by), "K2": ...}."""
+    import torch
+    from ace_tpu_torch.ops import kernels, modops
+    n, L = crt.degree, len(rows)
+    logn = n.bit_length() - 1
+    primes = [crt.all_primes[r] for r in rows]
+    rng = np.random.default_rng(SEED + 2 * L)
+
+    def residues():
+        return modops.to_torch(np.stack([
+            rng.integers(0, p, n, dtype=np.uint64) for p in primes]),
+            crt.device)
+
+    sets = [(residues(), residues()) for _ in range(4)]
+    out = torch.empty_like(sets[0][0])
+    q, mu_hi, mu_lo = crt.mod_arrays(rows)
+    ws = [int(rng.integers(1, p)) for p in primes]
+    w = crt.column(ws)
+    wp = crt.column([modops.precompute_shoup(v, p)
+                     for v, p in zip(ws, primes)])
+    mm = kernels.lib("modmul")
+    st = kernels.stream_ptr(out)
+    ptr = [(a.data_ptr(), b.data_ptr()) for a, b in sets]
+    raw = {
+        "K1": (lambda i: mm.ace_k1_barrett_mul(
+            *ptr[i % 4], q.data_ptr(), mu_hi.data_ptr(), mu_lo.data_ptr(),
+            out.data_ptr(), L, logn, 0, st),
+            3 * L * n * 8, BARRETT_IMAD * L * n),
+        "K2": (lambda i: mm.ace_k2_shoup_mul(
+            ptr[i % 4][0], w.data_ptr(), wp.data_ptr(), q.data_ptr(),
+            out.data_ptr(), L, logn, st),
+            2 * L * n * 8, SHOUP_IMAD * L * n),
+    }
+    res, msg = {}, []
+    for key, (f, nbytes, imads) in raw.items():
+        def launch(i, f=f, what=f"{key} at [{L}, {n}]"):
+            kernels.check(f(i), what)
+        ms = time_ms(launch, reps=10, batch=20)
+        b_ms, b_by = bound(nbytes, imads)
+        res[key] = (ms, b_ms, b_by)
+        msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                   f"({100 * b_ms / ms:.0f}%)")
+    log(f"{tag} [{L}, {n}] ({what}): {'; '.join(msg)}")
+    return res
 
 
 class _BlockProbe:
@@ -1881,7 +1962,8 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
         whole chain [num_q + P, N], each equal word for word to its plain
         version, round trip included, and timed (ntt_exact_and_timed);
         then K1-K4 over that chain and over its q primes alone
-        (kernels_exact_at), the shapes of the key switch and the ops;
+        (kernels_exact_at), the shapes of the key switch and the ops,
+        and K1 and K2 timed there (k1_k2_timed);
     (c) bench_torch's chained K3 passes at [8, N]: NTT/s, vs_baseline;
     (d) bench_micro_torch's context and ops (--iters `iters`), then one
         rotate and one mul+relin+rescale decoded against np.roll(msg, -1)
@@ -1947,10 +2029,14 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
             if not torch.equal(back, xs[0]):
                 raise AssertionError(f"K4(K3(x)) != x ({what})")
     del xs
-    kernels_exact_at(crt, range(crt.num_q + crt.num_p),
-                     "bench_micro_torch's q and P chain", "[phase 10] (b)")
-    kernels_exact_at(crt, range(crt.num_q), "bench_micro_torch's q chain",
-                     "[phase 10] (b)")
+    out["k1_k2"] = {}
+    for rows, what in ((range(crt.num_q + crt.num_p),
+                        "bench_micro_torch's q and P chain"),
+                       (range(crt.num_q), "bench_micro_torch's q chain")):
+        kernels_exact_at(crt, rows, what, "[phase 10] (b)")
+        if gpu:
+            out["k1_k2"][len(rows)] = k1_k2_timed(crt, list(rows), what,
+                                                  "[phase 10] (b)")
 
     reset_counters()
     d = bt.bench_device(degree, bt.LIMBS, dev)
@@ -2024,6 +2110,234 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the evaluator's op programs
+# ---------------------------------------------------------------------------
+
+PROGRAM_REPS = 5   # timed calls of each kind, eager and replayed
+RMGM_ROTS = 12     # the conv bundle at max_bundle_msg rotations
+
+
+def program_cases(ctx, rng) -> dict:
+    """kind -> (make, run): make() draws fresh inputs at the top level
+    (ciphertexts of uniform(-1, 1) messages, plaintexts, int64 weight
+    messages of up to 2^40), run(ev, *inputs) calls the kind's public op
+    on evaluator ev and returns its ciphertexts."""
+    import torch
+    ev, enc = ctx.evaluator, ctx.encoder
+    n = ctx.params.degree
+
+    def vec():
+        return rng.uniform(-1, 1, n // 2).astype(np.complex128)
+
+    def ct():
+        return ev.encrypt(enc.encode(vec()))
+
+    def msgs(g, r):
+        return torch.as_tensor(rng.integers(-(1 << 40), 1 << 40, (g, r, n)),
+                               device=ctx.device)
+
+    def ext():
+        return enc.encode(vec(), extended=True)
+
+    return {
+        "rot": (lambda: (ct(),), lambda e, a: [e.rotate(a, 1)]),
+        "conj": (lambda: (ct(),), lambda e, a: [e.conjugate(a)]),
+        "mulrl": (lambda: (ct(), ct()), lambda e, a, b: [e.mul(a, b)]),
+        "rs": (lambda: (ct(),), lambda e, a: [e.rescale(a)]),
+        "mp": (lambda: (ct(), enc.encode(vec())),
+               lambda e, a, p: [e.mul_plain(a, p)]),
+        "addc": (lambda: (ct(), float(rng.uniform(-1, 1))),
+                 lambda e, a, v: [e.add_const(a, v)]),
+        "rsum": (lambda: (ct(), ct()),
+                 lambda e, a, b: [e.rot_sum_jit([(a, 1), (b, 0), (a, 2)])]),
+        "rmg": (lambda: (ct(), [[ext(), None, ext()], [ext(), ext(), None]]),
+                lambda e, a, g: e.rot_ext_mac_groups_jit(a, [0, 1, 2], g)),
+        "rmgm": (lambda: (ct(), msgs(4, RMGM_ROTS)),
+                 lambda e, a, m: e.rot_mac_groups_msgs_jit(
+                     a, list(range(RMGM_ROTS)), m)),
+        "bsgs": (lambda: (ct(), msgs(4, 4)),
+                 lambda e, a, m: [e.bsgs_iter_jit(a, [0, 1, 2, 3],
+                                                  [0, 4, 8, 12], m)]),
+    }
+
+
+def _equal_cts(got: list, want: list) -> bool:
+    import torch
+    return len(got) == len(want) and all(
+        torch.equal(g.c0.data, w.c0.data) and torch.equal(g.c1.data,
+                                                          w.c1.data)
+        for g, w in zip(got, want))
+
+
+def time_call(fn, reps: int, device) -> tuple:
+    """(host ms, device ms) medians of `reps` calls of fn: the host clock
+    around the call and a synchronize, CUDA events around the call
+    (None on the CPU)."""
+    import torch
+    from ace_tpu_torch.utils.card import syncer
+    sync = syncer(device)
+    gpu = torch.device(device).type == "cuda"
+    wall, dev = [], []
+    for _ in range(reps):
+        sync()
+        if gpu:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        fn()
+        if gpu:
+            b.record()
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if gpu:
+            dev.append(a.elapsed_time(b))
+    return statistics.median(wall), statistics.median(dev) if gpu else None
+
+
+def phase_programs(ctx, slice_res: dict, bts: dict,
+                   reps: int = PROGRAM_REPS) -> dict:
+    """The evaluator's op programs (ckks/evaluator.py, utils/liftgraph.py)
+    on phase 5's context (ResNet-20's ring: N = 2^15, 34 q + 12 P
+    primes, 3 digits; its keys held) against Evaluator(programs=False)
+    on the same keys:
+      a. each program kind (rot and a conjugate through it, mulrl, rs,
+         mp, addc, rsum, rmg, rmgm at 12 rotations, bsgs) called three
+         times on fresh inputs (call 1 runs eagerly, call 2 captures and
+         replays, call 3 replays); each result equal word for word to
+         the eager evaluator's on the same inputs, and each call's
+         kernel-counter growth equal to the eager call's;
+      b. each kind's eager call and replay timed (time_call: host clock,
+         CUDA events);
+      c. phase 5's bootstrap a third time (replayed) against the eager
+         evaluator's on the same input: equal residues, both decoded
+         within 2e-2, each timed and then profiled for the device's idle
+         share (profile_inference);
+      d. phase 4's ops[:6] on its first input ciphertext through its
+         model's programs (captured by phase 4's second inference): equal
+         to phase 4's output residues.
+    Returns the programmed runs' kernel launches (launches_programs) and
+    the phase's measurements; main() fails unless every kernel
+    launched."""
+    import collections
+    import torch
+    from ace_tpu_torch.ckks.bootstrap import BootstrapContext
+    from ace_tpu_torch.ckks.evaluator import Evaluator
+    from ace_tpu_torch.ops import counter_state, modops, reset_counters
+    from ace_tpu_torch.utils.card import syncer
+
+    dev = ctx.device
+    sync = syncer(dev)
+    ev = ctx.evaluator
+    eager = Evaluator(ctx.params, ctx.keygen, ctx.encoder, programs=False)
+    launches = collections.Counter()
+
+    def counted(e, fn, *ins):
+        reset_counters()
+        out = fn(e, *ins)
+        sync()
+        return out, counter_state()
+
+    def add_launches(state):
+        for (k, attr), v in state.items():
+            if attr == "launches":
+                launches[k] += v
+
+    kg = ctx.keygen  # every key first: key generation launches kernels too
+    for r in sorted({1, 2, 4, 8, 12, *range(RMGM_ROTS)} - {0}):
+        kg.rot_key(r)
+    kg.conj_key()
+    rng = np.random.default_rng(SEED + 11)
+    cases = program_cases(ctx, rng)
+    out = {"kinds": {}}
+    for kind, (make, fn) in cases.items():
+        for call in range(1, 4):
+            ins = make()
+            got, c_prog = counted(ev, fn, *ins)
+            want, c_eager = counted(eager, fn, *ins)
+            if not _equal_cts(got, want):
+                raise AssertionError(f"program {kind}, call {call}: "
+                                     f"differs from the eager path")
+            if c_prog != c_eager:
+                raise AssertionError(f"program {kind}, call {call}: "
+                                     f"counters {c_prog} != eager "
+                                     f"{c_eager}")
+            add_launches(c_prog)
+        ins = make()
+        e_ms = time_call(lambda: fn(eager, *ins), reps, dev)
+        r_ms = time_call(lambda: fn(ev, *ins), reps, dev)
+        n_launch = sum(v for (_, a), v in c_prog.items() if a == "launches")
+        out["kinds"][kind] = {"eager_ms": e_ms, "replay_ms": r_ms,
+                              "kernel_launches": n_launch}
+        log(f"[phase 11] (a) {kind}: 3 calls equal to the eager path word "
+            f"for word, counters equal ({n_launch} K1-K4 launches a "
+            f"call); (b) eager {e_ms[0]:.3f} ms host"
+            + (f" / {e_ms[1]:.3f} ms events" if e_ms[1] is not None else "")
+            + f", replay {r_ms[0]:.3f} ms host"
+            + (f" / {r_ms[1]:.3f} ms events" if r_ms[1] is not None else "")
+            + f" (x{e_ms[0] / r_ms[0]:.1f} host)")
+    out["a_stats"] = ev.program_stats()
+    log(f"[phase 11] (a) programs: {out['a_stats']}")
+
+    ct, msg = bts["input"], bts["msg"]
+    bc = BootstrapContext(eager, ct.slots)
+    runs = {}
+    for name, f in (("programs", lambda: ctx.bootstrap(ct)),
+                    ("eager", lambda: bc.bootstrap(ct))):
+        reset_counters()
+        t0 = time.perf_counter()
+        res = f()
+        sync()
+        secs = time.perf_counter() - t0
+        if name == "programs":
+            add_launches(counter_state())
+        ctx.set_output_data("bts11", res)
+        err = float(np.max(np.abs(ctx.handle_output("bts11") - msg)))
+        prof = {}
+        profile_inference(f, secs, f"[phase 11] (c) {name}:", dev, prof)
+        runs[name] = {"s": secs, "max_err": err, "out": res,
+                      "idle": prof.get("idle"),
+                      "profiled_wall_s": prof.get("wall_s"),
+                      "busy_s": prof.get("busy_s")}
+        log(f"[phase 11] (c) warm bootstrap, {name}: {secs:.3f} s, decoded "
+            f"within {err:.3e} (limit {BTS_TOL})")
+        if not err < BTS_TOL:
+            raise AssertionError(f"bootstrap ({name}) decodes with error "
+                                 f"{err}")
+    if not _equal_cts([runs["programs"]["out"]], [runs["eager"]["out"]]):
+        raise AssertionError("the replayed bootstrap differs from the "
+                             "eager one")
+    for r in runs.values():
+        del r["out"]
+    out["bootstrap"] = runs
+    log(f"[phase 11] (c) replayed bootstrap == eager bootstrap, residue for "
+        f"residue; x{runs['eager']['s'] / runs['programs']['s']:.2f}")
+
+    model = slice_res["model"]
+    reset_counters()
+    t0 = time.perf_counter()
+    got = model.runner.run(slice_res["input"])
+    sync()
+    secs = time.perf_counter() - t0
+    add_launches(counter_state())
+    c0, c1 = slice_res["residues"]
+    if not (np.array_equal(modops.to_numpy(got.c0.data), c0)
+            and np.array_equal(modops.to_numpy(got.c1.data), c1)):
+        raise AssertionError("ops[:6] through programs differs from phase "
+                             "4's output residues")
+    st = model.ctx.evaluator.program_stats()
+    out["slice"] = {"s": secs, "stats": st}
+    log(f"[phase 11] (d) ops[:6] replayed on phase 4's input in "
+        f"{secs:.2f} s: equal to phase 4's output residues; its programs "
+        f"{st}")
+    out["launches_programs"] = dict(launches)
+    out["stats"] = ev.program_stats()
+    log(f"[phase 11] launches through programs {dict(launches)}; "
+        f"programs {out['stats']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2063,6 +2377,23 @@ def main() -> int:
         lap("5")
         log(f"[summary] bootstrap: cold {bts['cold_s']:.2f} s, warm "
             f"{bts['warm_s']:.2f} s, max_err {bts['max_err']:.3e}")
+        prog = phase_programs(bts["ctx"], res, bts)
+        lap("11")
+        idle = [k for k, v in prog["launches_programs"].items() if v == 0]
+        if idle or len(prog["launches_programs"]) < 4:
+            raise AssertionError(f"kernels never launched through programs "
+                                 f"in phase 11: {prog['launches_programs']}")
+        pb = prog["bootstrap"]
+        log(f"[summary] op programs: " + ", ".join(
+            f"{k} {v['eager_ms'][0]:.2f} -> {v['replay_ms'][0]:.2f} ms"
+            for k, v in prog["kinds"].items())
+            + f"; warm bootstrap eager {pb['eager']['s']:.3f} s (idle "
+            f"{pb['eager']['idle']}), programs {pb['programs']['s']:.3f} s "
+            f"(idle {pb['programs']['idle']}); ops[:6] replayed "
+            f"{prog['slice']['s']:.2f} s; programs {prog['stats']}")
+        for key in ("model", "input"):  # free phase 4's context
+            del res[key]
+        del bts["ctx"]
         full = phase_resnet20()
         lap("6")
         idle = [k for k, v in full["launches"].items() if v == 0]
@@ -2075,7 +2406,8 @@ def main() -> int:
             f"{full['keys']} rotation keys {full['rot_keygen_s']:.1f} s), "
             f"max_err {full['max_err']:.3e} "
             f"of max|plain| {full['max_plain']:.3f}, peak "
-            f"{full['peak_gib']:.2f} GiB; total "
+            f"{full['peak_gib']:.2f} GiB allocated, "
+            f"{full['peak_reserved_gib']:.2f} GiB reserved; total "
             f"{time.perf_counter() - t_start:.1f} s on {dev['card']}")
         from ace_tpu_torch.compiler.relu_ranges import ranges_for
         from ace_tpu_torch.models import resnet as M
@@ -2141,7 +2473,14 @@ def main() -> int:
             raise AssertionError(f"kernels never launched in phase 10: "
                                  f"{idle}")
         for r in rows:
-            r["launches_2e16"] = bench["launches"][r["name"].split()[0]]
+            k = r["name"].split()[0]
+            r["launches_2e16"] = bench["launches"][k]
+            r["launches_programs"] = prog["launches_programs"][k]
+            if k in ("K1", "K2"):
+                r["ms_2e16"] = {f"[{L}, 65536]": t[k][0]
+                                for L, t in bench["k1_k2"].items()}
+                r["bound_ms_2e16"] = {f"[{L}, 65536]": t[k][1]
+                                      for L, t in bench["k1_k2"].items()}
         nt8, bs = bench["ntt_8"], bench["bootstrap_s"]
         log(f"[summary] benchmark entry points at N = 2^16: bench_torch "
             f"--ntt {bench['bench_ntt']['value']} NTT/s (vs_baseline "

@@ -27,8 +27,12 @@ plaintext shadow. --checkpoint saves the live ciphertexts after every op
 to <PATH>.img<i>.npz and resumes an image from it; --json keeps the
 finished images' rows and skips them when run again. Each row holds
 run_resnet.py's keys plus the card's `name, power.limit` (`card`, as
-nvidia-smi gives them) and the process's peak device memory so far
-(`max_memory_allocated`), both null on the CPU.
+nvidia-smi gives them), the process's peak device memory so far
+(`max_memory_allocated`, and `max_memory_reserved`, which also counts
+the graph pool's segments that replays use outside the allocator), null
+on the CPU, and the evaluator's op programs so far (`programs`, Evaluator.program_stats: programs cached
+and lifted, graphs captured, seconds in captures, replays, staging and
+graph-pool bytes; the pool's bytes are null on the CPU).
 """
 
 import argparse
@@ -179,7 +183,10 @@ def main():
         row = dict(image=i, seconds=dt, max_err=err, argmax_agree=agree,
                    params=params_row, card=name_power,
                    max_memory_allocated=(torch.cuda.max_memory_allocated()
-                                         if gpu else None))
+                                         if gpu else None),
+                   max_memory_reserved=(torch.cuda.max_memory_reserved()
+                                        if gpu else None),
+                   programs=model.ctx.evaluator.program_stats())
         if labels is not None:
             row["label_match"] = bool(np.argmax(logits[:k]) == labels[i])
         results.append(row)

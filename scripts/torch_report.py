@@ -6,8 +6,9 @@ counterpart of scripts/report.py for ace_tpu_torch.
 
 Reads results/torch_<model>.json (the rows of scripts/torch_zoo.py and
 run_resnet_torch.py: one per image, each with its `card`, the card's
-name and power limit as nvidia-smi gives them, and its
-`max_memory_allocated`), results/torch_accuracy_*.json (the summaries
+name and power limit as nvidia-smi gives them, its
+`max_memory_allocated` and, where recorded, its `max_memory_reserved`,
+which counts the graph pool too), results/torch_accuracy_*.json (the summaries
 of scripts/torch_accuracy.py and the zoo) and
 results/torch_bench_micro_*.json (bench_micro_torch.py's op times, one
 table per file beside its `card`, as scripts/report.py renders
@@ -79,6 +80,8 @@ def latency_rows(root: str = ROOT) -> list:
                 "params": _params(next((r["params"] for r in rs
                                         if r.get("params")), None)),
                 "peak": max(r.get("max_memory_allocated") or 0 for r in rs),
+                "reserved": max(r.get("max_memory_reserved") or 0
+                                for r in rs),
                 "ref": REF_SECONDS.get(name)})
     return rows
 
@@ -122,9 +125,10 @@ def render(root: str = ROOT) -> str:
         lines += ["## Encrypted inference latency", "",
                   "| model | card | images | best s/img | mean s/img "
                   "| argmax agree | max err | params | peak device memory "
-                  "GiB | ACE reference s/img (1-thread Xeon 8369B CPU) "
-                  "| reference / best |",
-                  "|---|---|---|---|---|---|---|---|---|---|---|"]
+                  "GiB (allocated) | peak reserved GiB (graph pool "
+                  "included) | ACE reference s/img (1-thread Xeon 8369B "
+                  "CPU) | reference / best |",
+                  "|---|---|---|---|---|---|---|---|---|---|---|---|"]
         for r in lat:
             ref = f"{r['ref']:.2f}" if r["ref"] else "-"
             ratio = f"{r['ref'] / r['best']:.1f}x" if r["ref"] else "-"
@@ -132,7 +136,8 @@ def render(root: str = ROOT) -> str:
                 f"| {r['model']} | {r['card']} | {r['images']} "
                 f"| {r['best']:.1f} | {r['mean']:.1f} "
                 f"| {r['agree']}/{r['images']} | {r['max_err']:.4f} "
-                f"| {r['params']} | {_gib(r['peak'])} | {ref} | {ratio} |")
+                f"| {r['params']} | {_gib(r['peak'])} "
+                f"| {_gib(r['reserved'])} | {ref} | {ratio} |")
         lines.append("")
     acc = accuracy_rows(root)
     if acc:
