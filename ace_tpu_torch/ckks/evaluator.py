@@ -15,8 +15,10 @@ replayed after (on the CPU the function runs directly). Its lax.scan
 over weight groups is a Python loop. Keys are read by reference: when
 the rotation-key LRU evicts a key, the programs that captured it are
 dropped (`_drop_key_programs`). `programs=False` caches the plain
-functions instead; FheContext turns programs off under a mesh, whose
-mod-up and mod-down run collectives through the host.
+functions instead. Under a limb mesh (FheContext(mesh=...)) the same
+programs, under the same keys, are split at their collectives (mod-up's
+and mod-down's gathers, rescale's and mod-raise's broadcasts), which run
+eagerly between the graph segments' replays (utils/liftgraph.py).
 
 Exact-semantics sources (file:line in the reference):
   encrypt/decrypt:   ckks_encryptor.c:20-75, ckks_decryptor.c:18-57
@@ -543,14 +545,18 @@ class Evaluator:
             self._jit_cache[key] = builder(*args)
         return self._jit_cache[key]
 
+    def _graph_pool(self) -> GraphPool:
+        """The programs' GraphPool, made at first use."""
+        if self._pool is None:
+            self._pool = GraphPool(self.crt.device)
+        return self._pool
+
     def _lift(self, impl, refs=()):
         """impl as an op program (its arguments at `refs` read by
         reference), or impl itself with programs off."""
         if not self.programs:
             return impl
-        if self._pool is None:
-            self._pool = GraphPool(self.crt.device)
-        return lift_graph(impl, self._pool, refs)
+        return lift_graph(impl, self._graph_pool(), refs)
 
     def _run(self, pkey, fn, keys: list, *args):
         """fn(*args) for the program cached under pkey that reads the
@@ -572,14 +578,25 @@ class Evaluator:
 
     def program_stats(self) -> dict:
         """Programs cached, and the pool's counts (GraphPool.stats):
-        programs lifted, graphs captured, capture seconds, replays,
-        staging and graph-pool bytes."""
+        programs lifted, programs captured, capture seconds, graph
+        segments captured, replays, staging and graph-pool bytes."""
         if self._pool is None:
-            st = dict(programs=0, captures=0, capture_s=0.0, replays=0,
-                      staging_bytes=0, pool_bytes=None)
+            st = dict(programs=0, captures=0, capture_s=0.0, segments=0,
+                      replays=0, staging_bytes=0, pool_bytes=None)
         else:
             st = self._pool.stats()
         return dict(st, cached=len(self._jit_cache))
+
+    def program_segments(self) -> dict:
+        """Program kind (its key's first item) -> the graph segments of
+        each cached program that has run, in cache order: 1 for a
+        program without a collective, one more than its collectives
+        under a mesh."""
+        out = {}
+        for key, p in self._jit_cache.items():
+            if isinstance(p, Program) and p.segments is not None:
+                out.setdefault(key[0], []).append(p.segments)
+        return out
 
     def _key_raw(self, key: SwitchKey):
         """Full key digit planes as raw tensors (program arguments read

@@ -19,6 +19,9 @@ by axis are methods here:
   broadcast_limb    one limb's row from its owner (rescale, mod-raise)
 
 This module is the only one of the port that calls torch.distributed.
+Every collective passes through `ProcessMesh._collective`, where an op
+program that is running takes it (utils/liftgraph.py splits its graph
+there and runs the collective between the segments' replays).
 
 The backend is the caller's choice, never picked by catching an error:
   "gloo": the CPU, or one card shared by every rank (NCCL refuses two
@@ -45,6 +48,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from ace_tpu_torch.utils import liftgraph
 
 BACKENDS = ("gloo", "nccl")
 WORLD_TIMEOUT_S = 1800.0  # run_world stops a world that outlives this
@@ -140,6 +145,44 @@ class ProcessMesh:
         self.collectives += 1
         self.collective_s += time.perf_counter() - t0
 
+    def _collective(self, op: str, x: torch.Tensor, axis: str,
+                    src=None) -> torch.Tensor:
+        """The chokepoint of the four collectives below: inside an op
+        program's function the program takes it (utils/liftgraph.py:
+        recorded, checked, or left to the replays); elsewhere it runs."""
+        prog = liftgraph.running()
+        if prog is not None:
+            return prog.collective(self, op, x, axis, src)
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{op} over {axis!r} reached inside a CUDA "
+                               f"graph capture without a program")
+        return self.run_collective(op, x, axis, src)
+
+    def run_collective(self, op: str, x: torch.Tensor, axis: str,
+                       src=None) -> torch.Tensor:
+        """Run collective `op` ("all_to_all", "all_reduce", "all_gather"
+        or "broadcast") of x over `axis` (src: the broadcasting rank's
+        coordinate) and return its result."""
+        group = self.groups[axis]
+        w = self._to_wire(x)
+        if op == "all_to_all":
+            out = torch.empty_like(w)
+            self._run(dist.all_to_all_single, out, w, group=group)
+        elif op == "all_reduce":
+            self._run(dist.all_reduce, w, group=group)
+            out = w
+        elif op == "all_gather":
+            parts = [torch.empty_like(w) for _ in range(self.sizes[axis])]
+            self._run(dist.all_gather, parts, w, group=group)
+            out = torch.stack(parts)
+        elif op == "broadcast":
+            root = dist.get_global_rank(group, src)
+            self._run(dist.broadcast, w, src=root, group=group)
+            out = w
+        else:
+            raise ValueError(f"no collective {op!r}")
+        return self._from_wire(out)
+
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """x [n, ...] over an axis of n ranks: chunk j goes to the rank
         at coordinate j; returns [n, ...] whose chunk i came from i."""
@@ -147,43 +190,34 @@ class ProcessMesh:
         if self._skip(n):
             return x
         assert x.shape[0] == n, x.shape
-        w = self._to_wire(x)
-        out = torch.empty_like(w)
-        self._run(dist.all_to_all_single, out, w, group=self.groups[axis])
-        return self._from_wire(out)
+        return self._collective("all_to_all", x, axis)
 
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over the axis (int64: modulo 2^64)."""
         if self._skip(self.sizes[axis]):
             return x
-        w = self._to_wire(x)
-        self._run(dist.all_reduce, w, group=self.groups[axis])
-        return self._from_wire(w)
+        return self._collective("all_reduce", x, axis)
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """[n, *x.shape]: every rank's x along the axis, in coordinate
         order (x has the same shape on every rank)."""
-        n = self.sizes[axis]
-        if self._skip(n):
+        if self._skip(self.sizes[axis]):
             return x[None]
-        w = self._to_wire(x)
-        parts = [torch.empty_like(w) for _ in range(n)]
-        self._run(dist.all_gather, parts, w, group=self.groups[axis])
-        return self._from_wire(torch.stack(parts))
+        return self._collective("all_gather", x, axis)
 
     def broadcast(self, x: torch.Tensor, axis: str, src: int) -> torch.Tensor:
         """The rank at coordinate `src` of the axis sends x; every rank of
         the axis passes a tensor of x's shape and gets x back."""
         if self._skip(self.sizes[axis]):
             return x
-        w = self._to_wire(x)
-        root = dist.get_global_rank(self.groups[axis], src)
-        self._run(dist.broadcast, w, src=root, group=self.groups[axis])
-        return self._from_wire(w)
+        return self._collective("broadcast", x, axis, src)
 
     def sum_over_world(self, values: list) -> list:
         """Integers summed over every rank of the world (one all_reduce
-        of the default group), e.g. per-rank counters."""
+        of the default group), e.g. per-rank counters. Not inside an op
+        program: its result goes to the host."""
+        if liftgraph.running() is not None:
+            raise RuntimeError("sum_over_world inside an op program")
         dev = self.device if self.backend == "nccl" else "cpu"
         t = torch.tensor(values, dtype=torch.int64, device=dev)
         self._run(dist.all_reduce, t)

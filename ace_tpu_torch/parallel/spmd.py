@@ -33,6 +33,17 @@ are canonical, so it is exact while D * max(q) < 2^64; the D - 1
 conditional subtractions after it compare as unsigned (modops._ult), so
 sums past 2^63 (which a signed compare would misread) stay exact.
 
+Op programs. rotate and relinearize each run one program, cached in
+`_jit_cache` under ace_tpu's keys "rot" and "relin"
+(utils/liftgraph.py): on the card a chain of CUDA graphs split at the
+body's collectives (2 all_to_all per sharded NTT, the digit all_reduce
+and the slot all_gather; a one-rank axis under gloo staging is no
+collective), which run eagerly between the segments' replays. The key
+blocks and the automorphism order are copied in at each call, as
+ace_tpu passes kb, ka and its maps as arguments, so the programs read
+no key by reference and need no eviction hook. `switches` counts in the
+wrappers, at every call.
+
 Bit-exactness contract: SpmdKeySwitch.rotate == Evaluator.rotate on the
 same keys (tests/test_torch_spmd.py, against ace_tpu's SpmdKeySwitch).
 The digit's own rows of the base conversion use the identity
@@ -51,6 +62,7 @@ from ace_tpu_torch.ckks.cipher import Ciphertext
 from ace_tpu_torch.ops import modops
 from ace_tpu_torch.parallel import sharded_ntt as SN
 from ace_tpu_torch.poly.poly import RnsPoly, _base_conv_data
+from ace_tpu_torch.utils.liftgraph import GraphPool, lift_graph
 
 
 def window_constants(crt, level: int) -> dict:
@@ -121,7 +133,11 @@ def chain_tables(crt) -> SN.ShardedNttTables:
 class SpmdKeySwitch:
     """The SPMD key switch at one (level, mesh), this rank's part of it."""
 
-    def __init__(self, params, level: int, mesh):
+    def __init__(self, params, level: int, mesh, programs: bool = True,
+                 pool=None):
+        """programs: run rotate and relinearize as op programs (see the
+        module docstring) on `pool` (a utils.liftgraph.GraphPool, e.g.
+        an evaluator's; None makes one); False runs them eagerly."""
         crt = params.crt
         self.params, self.crt, self.level, self.mesh = params, crt, level, mesh
         self.n = params.degree
@@ -165,6 +181,9 @@ class SpmdKeySwitch:
              for v, q in zip(p_inv, crt.q_primes[:level])])[:, :, None]
         self._resident = {}  # id(SwitchKey) -> (kb, ka)
         self.switches = 0    # key switches this rank took part in
+        # the programs' pool, None with programs off
+        self.pool = (pool or GraphPool(crt.device)) if programs else None
+        self._jit_cache = {}  # "rot", "relin" -> program (ace_tpu's keys)
 
     # -- per-digit key residency -------------------------------------------
 
@@ -217,13 +236,13 @@ class SpmdKeySwitch:
         return modops.shoup_mul_d(diff, self.p_inv, self.p_inv_prec,
                                   self.q3)
 
-    def _switch(self, c0, c1, tgt, key, auto_idx):
-        """One hybrid key switch of `tgt` ([level, N], NTT form).
-        auto_idx None: relinearize semantics, (s0 + c0, s1 + c1);
-        else rotate semantics, auto(s0 + c0), auto(s1)."""
+    def _switch(self, c0, c1, tgt, kb, ka, rotate: bool):
+        """One hybrid key switch of `tgt` ([level, N], NTT form) against
+        this rank's key blocks kb, ka: [2, level, N], the whole result on
+        every rank. rotate=False: relinearize semantics, (s0 + c0,
+        s1 + c1); True: (s0 + c0, s1), before the automorphism."""
         level, per, mesh, t = self.level, self.per, self.mesh, self.tabs
         R, cl = self.R, self.C // self.s
-        kb, ka = self._key_stack(key)
         part = self._local(tgt)[self.start:self.start + per]
         part = SN.ntt_inv_local(part, t.rows(
             slice(self.start, self.start + per)), mesh)
@@ -242,14 +261,32 @@ class SpmdKeySwitch:
         e = reduce_digit_sum(e, self.qp3, self.num_digits)
         s0, s1 = self._mod_down(e[0]), self._mod_down(e[1])
         t0 = modops.add_mod(s0, self._local(c0), self.q3)
-        t1 = s1 if auto_idx is not None else \
-            modops.add_mod(s1, self._local(c1), self.q3)
+        t1 = s1 if rotate else modops.add_mod(s1, self._local(c1), self.q3)
         both = mesh.all_gather_slot(torch.stack([t0, t1]), dim=3)
-        both = both.reshape(2, level, self.n)
-        if auto_idx is not None:
-            both = both.index_select(2, self.crt.auto_order(auto_idx))
-        self.switches += 1
-        return both[0], both[1]
+        return both.reshape(2, level, self.n)
+
+    # -- programs (ace_tpu's _jit_cache: "rot" and "relin") -------------------
+
+    def _program(self, kind: str):
+        """The program of `kind`, built at its first use: a function of
+        the ciphertext data, this rank's key blocks and (rot) the
+        automorphism's order, all copied in, so that one program serves
+        every rotation at this level, as ace_tpu's one jitted shard_map
+        body does."""
+        if kind not in self._jit_cache:
+            ks = weakref.proxy(self)
+            if kind == "rot":
+                def impl(c0, c1, kb, ka, order):
+                    both = ks._switch(c0, c1, c1, kb, ka, True)
+                    both = both.index_select(2, order)
+                    return both[0], both[1]
+            else:
+                def impl(c0, c1, c2, kb, ka):
+                    both = ks._switch(c0, c1, c2, kb, ka, False)
+                    return both[0], both[1]
+            self._jit_cache[kind] = (impl if self.pool is None
+                                     else lift_graph(impl, self.pool))
+        return self._jit_cache[kind]
 
     # -- ops -----------------------------------------------------------------
 
@@ -264,8 +301,10 @@ class SpmdKeySwitch:
         if ct.level != self.level:
             raise ValueError(f"ciphertext at level {ct.level}, key switch "
                              f"at {self.level}")
-        d0, d1 = self._switch(ct.c0.data, ct.c1.data, ct.c1.data, key,
-                              auto_idx)
+        kb, ka = self._key_stack(key)
+        d0, d1 = self._program("rot")(ct.c0.data, ct.c1.data, kb, ka,
+                                      self.crt.auto_order(auto_idx))
+        self.switches += 1
         return self._result(d0, d1, ct)
 
     def relinearize(self, c3, keygen) -> Ciphertext:
@@ -275,6 +314,8 @@ class SpmdKeySwitch:
         if c3.c2.num_q != self.level:
             raise ValueError(f"c2 at level {c3.c2.num_q}, key switch at "
                              f"{self.level}")
-        d0, d1 = self._switch(c3.c0.data, c3.c1.data, c3.c2.data,
-                              keygen.relin_key, None)
+        kb, ka = self._key_stack(keygen.relin_key)
+        d0, d1 = self._program("relin")(c3.c0.data, c3.c1.data, c3.c2.data,
+                                        kb, ka)
+        self.switches += 1
         return self._result(d0, d1, c3)

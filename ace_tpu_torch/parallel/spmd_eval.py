@@ -11,6 +11,12 @@ the full keys, as ace_tpu's does). Every other op, and every level
 where the decomposition has another digit count, runs the single-device
 code; the two paths are bit-exact, so mixing them is sound.
 
+Op programs. With programs on (the default, as ace_tpu's inherited
+jitted bundles), the SPMD key switches run SpmdKeySwitch's "rot" and
+"relin" programs, split at their collectives, and every other op the
+single-device programs, which have none; all of them share the
+evaluator's one GraphPool, since they replay one at a time.
+
 Every rank of the mesh runs the same program on the same ciphertexts
 (ace_tpu's arrays are global), so every rank must hold the same keys:
 the same seed, or the same injected keys.
@@ -39,8 +45,20 @@ class SpmdEvaluator(Evaluator):
                   and self.params.degree
                   >= 2 * self.digit_mesh.shape["slot"] * 128)
             self._spmd[level] = (SpmdKeySwitch(
-                self.params, level, self.digit_mesh) if ok else None)
+                self.params, level, self.digit_mesh, self.programs,
+                self._graph_pool() if self.programs else None)
+                if ok else None)
         return self._spmd[level]
+
+    def program_segments(self) -> dict:
+        """Evaluator.program_segments, plus "spmd rot" and "spmd relin":
+        the segments of each level's SpmdKeySwitch programs."""
+        out = super().program_segments()
+        for k in self._spmd.values():
+            for kind, p in (k._jit_cache.items() if k is not None else ()):
+                if getattr(p, "segments", None) is not None:
+                    out.setdefault(f"spmd {kind}", []).append(p.segments)
+        return out
 
     @property
     def spmd_switches(self) -> int:

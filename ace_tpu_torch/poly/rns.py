@@ -210,7 +210,19 @@ class CrtContext:
         over the limb axis."""
         if not self.sharded:
             return data
-        rows = list(rows)
+        m, idx = self.memo(("gather", tuple(rows)),
+                           lambda: self._gather_plan(rows))
+        if m == 0:
+            return data
+        parts = self.mesh.all_gather_limb(data, m)     # [n, m, N]
+        flat = parts.reshape(-1, *parts.shape[2:])
+        return flat.index_select(0, idx)
+
+    def _gather_plan(self, rows) -> tuple:
+        """(m, idx) for gather: the most rows any limb rank holds of
+        `rows`, and the device indices of `rows` in the gathered
+        [n_limb * m] rows (cached: an op program makes no host-to-device
+        copy after its first call)."""
         n = self.mesh.n_limb
         counts = [0] * n
         pos = []
@@ -218,13 +230,9 @@ class CrtContext:
             pos.append((g % n, counts[g % n]))
             counts[g % n] += 1
         m = max(counts)
-        if m == 0:
-            return data
-        parts = self.mesh.all_gather_limb(data, m)     # [n, m, N]
-        flat = parts.reshape(n * m, *parts.shape[2:])
         idx = torch.as_tensor([r * m + i for r, i in pos], dtype=torch.int64,
-                              device=flat.device)
-        return flat.index_select(0, idx)
+                              device=self.device)
+        return m, idx
 
     def gather_poly(self, p) -> torch.Tensor:
         """All residues [num_q + num_p, N] of RnsPoly p in global order."""

@@ -38,10 +38,10 @@ class FheContext:
         and relinearize then go through the SPMD evaluator
         (parallel/spmd_eval.py) with per-digit key residency. It does
         not combine with `mesh` (ace_tpu never runs the two together).
-        The single-device evaluator runs its ops as op programs (CUDA
-        graphs on the card, ckks/evaluator.py); under either mesh they
-        run eagerly, since their mod-up and mod-down run collectives
-        through the host, which a capture cannot hold."""
+        The evaluator runs its ops as op programs (CUDA graphs on the
+        card, ckks/evaluator.py), under either mesh too: there each
+        program is split at its collectives, which run eagerly between
+        the graph segments' replays (utils/liftgraph.py)."""
         from ace_tpu_torch.ckks.encoder import Encoder
         from ace_tpu_torch.ckks.keygen import KeyGenerator
         from ace_tpu_torch.ckks.evaluator import Evaluator
@@ -76,12 +76,10 @@ class FheContext:
             if digit_mesh is not None:
                 from ace_tpu_torch.parallel.spmd_eval import SpmdEvaluator
                 self.evaluator = SpmdEvaluator(params, self.keygen,
-                                               self.encoder, digit_mesh,
-                                               programs=False)
+                                               self.encoder, digit_mesh)
             else:
                 self.evaluator = Evaluator(params, self.keygen,
-                                           self.encoder,
-                                           programs=mesh is None)
+                                           self.encoder)
         self._bts = {}  # slot count -> BootstrapContext
         self.pt_mgr = None
         self.manifest = None

@@ -53,10 +53,51 @@ replays use them outside the allocator, so
 `max_memory_reserved` does not. Clone-out also keeps an output from
 aliasing another program's scratch.
 
+Split programs. A function that calls a mesh collective (the SPMD key
+switch's all_to_all, all_reduce and all_gather, the limb mesh's gathers
+and broadcasts, parallel/mesh.py) becomes a chain of graph segments with
+the collectives run eagerly between their replays: a gloo collective is
+staged through the host and an NCCL one runs on its own stream, and
+neither can sit inside a capture. Every collective goes through
+`ProcessMesh._collective`, which hands it to the running program
+(`running()`):
+- Call 1 runs it and records the program's collective schedule: each
+  collective's method, axis, source rank and input shape, in order,
+  and its output shape.
+- Call 2 captures. At a collective it copies the input into the
+  collective's static input buffer (still inside the segment), ends the
+  segment's graph, hands the function the collective's static output
+  buffer and begins the next segment's graph in the same pool on the
+  same side stream; the collective itself does not run. Then the
+  program replays once.
+- A replay runs the segments in order and, between segment k and k + 1,
+  collective k through the same ProcessMesh method, from its static
+  input into its static output, so the mesh's counters (collectives,
+  staged bytes and seconds) go on counting.
+Invariant: every call of a program, in any of its phases, runs its
+collectives once each and in call 1's order. Ranks whose programs are
+at different calls (one rank's program dropped and rebuilt while the
+others replay) therefore stay in step. A schedule that differs from call
+1's raises; so does a collective reached inside a segment without a
+running program, or a host synchronisation inside a segment (CUDA
+refuses it during a capture).
+Memory: the collectives' static buffers are further regions of the
+shared staging buffer, after the inputs and outputs. The argument above
+still holds for the segments: programs replay one at a time, and between
+two segments of one replay only the collective runs, which reads and
+writes staging memory and allocates outside the graph pool (no capture
+is under way then). A tensor that one segment makes and a later one
+reads stays referenced by the function until the capture ends, so no
+segment in between is given its memory; each replay rewrites it before
+it is read. A program without a collective is one graph, as before. A
+split program captures in "thread_local" mode: an NCCL process group's
+watchdog thread queries CUDA events while the segments capture.
+
 A capture or replay that fails raises; nothing falls back to the eager
 path. On the CPU (a pool on a CPU device) a Program calls `fn` directly
 at every call with the same bookkeeping (calls, counter deltas, the
-by-reference tensors from call 2 on): the plain version the tests use.
+by-reference tensors from call 2 on, the collective schedule checked
+at every call after the first): the plain version the tests use.
 """
 
 from __future__ import annotations
@@ -69,6 +110,17 @@ import torch
 # static buffers start at 512-byte boundaries (the kernels move 16-byte
 # vectors; the caching allocator's own alignment is 512 bytes)
 _ALIGN = 64  # int64 words
+
+# the Program whose function is running: the collectives it reaches sit
+# deep in poly/ and parallel/ code, which takes no program argument, so
+# the mesh's chokepoint looks it up here (programs run one at a time)
+_running = None
+
+
+def running():
+    """The Program whose function is running (its collectives go through
+    Program.collective), or None."""
+    return _running
 
 
 def _flatten(x, leaves: list):
@@ -105,6 +157,7 @@ class GraphPool:
         self.programs = 0     # Programs lifted
         self.captures = 0     # graphs captured
         self.capture_s = 0.0  # host seconds in captures (call 2 alone)
+        self.segments = 0     # graphs captured (a split program's each)
         self.replays = 0
 
     def staging(self, words: int) -> torch.Tensor:
@@ -139,13 +192,15 @@ class GraphPool:
 
     def stats(self) -> dict:
         return {"programs": self.programs, "captures": self.captures,
-                "capture_s": self.capture_s, "replays": self.replays,
+                "capture_s": self.capture_s, "segments": self.segments,
+                "replays": self.replays,
                 "staging_bytes": self.staging_bytes(),
                 "pool_bytes": self.pool_bytes()}
 
 
 class Program:
-    """fn as a captured CUDA graph (see the module docstring)."""
+    """fn as a captured CUDA graph, or a chain of them split at its
+    collectives (see the module docstring)."""
 
     def __init__(self, fn, pool: GraphPool, refs=()):
         self.fn = fn
@@ -156,8 +211,23 @@ class Program:
         self._in_shapes = None
         self._out_spec = None  # (structure, shapes) of the outputs
         self._held = None      # the by-reference tensors, from call 2
-        self._graph = None
+        self._graphs = None    # the captured segments, in order
         self._static = None    # (input views, output views, buffer)
+        # the collective schedule of call 1: (method, axis, src, input
+        # shape) of each collective in order, with its output shape and
+        # mesh; the static (input, output) views of each from call 2
+        self.schedule = []
+        self._step_out = []
+        self._meshes = []
+        self._steps = None
+        self._next = None      # the next collective's index in this call
+        self._capturing = None  # [current graph, finished graphs]
+
+    @property
+    def segments(self):
+        """Graph segments: one more than the collectives (None before
+        call 1)."""
+        return None if self._delta is None else len(self.schedule) + 1
 
     def _split(self, args):
         inputs, held = [], []
@@ -179,7 +249,7 @@ class Program:
         shapes = [tuple(t.shape) for t in inputs]
         if self.calls == 1:
             before = ops.counter_state()
-            out = self.fn(*args)
+            out = self._run_fn(args)
             self._delta = ops.counter_delta(before)
             self._in_shapes = shapes
             leaves = []
@@ -192,15 +262,75 @@ class Program:
         if self.calls == 2:
             self._held = held
             if self.pool.handle is None:
-                return self.fn(*args)
+                return self._run_fn(args)
             return self._capture(args, inputs)
         if len(held) != len(self._held) or any(
                 a is not b for a, b in zip(held, self._held)):
             raise RuntimeError("program handed other by-reference tensors "
                                "than it captured (a stale switching key)")
         if self.pool.handle is None:
-            return self.fn(*args)
+            return self._run_fn(args)
         return self._replay(inputs)
+
+    def _run_fn(self, args):
+        """fn(*args) with this program running: call 1 records the
+        collective schedule, every later call is held to it."""
+        global _running
+        if _running is not None:
+            raise RuntimeError("a program was called inside another "
+                               "program's function")
+        _running, self._next = self, 0
+        try:
+            out = self.fn(*args)
+        finally:
+            _running = None
+        if self.calls > 1 and self._next != len(self.schedule):
+            raise RuntimeError(f"call {self.calls} of the program ran "
+                               f"{self._next} collectives, call 1 "
+                               f"{len(self.schedule)}")
+        return out
+
+    def collective(self, mesh, op: str, x: torch.Tensor, axis: str,
+                   src=None) -> torch.Tensor:
+        """Collective `op` of `mesh` reached by this program's function
+        (ProcessMesh._collective): run and recorded at call 1, checked
+        against the schedule at every later call, run on the CPU and
+        left to the replays under a capture."""
+        entry = (op, axis, src, tuple(x.shape))
+        k = self._next
+        self._next += 1
+        if self.calls == 1:
+            out = mesh.run_collective(op, x, axis, src)
+            self.schedule.append(entry)
+            self._step_out.append(tuple(out.shape))
+            self._meshes.append(mesh)
+            return out
+        if k >= len(self.schedule) or self.schedule[k] != entry \
+                or self._meshes[k] is not mesh:
+            want = self.schedule[k] if k < len(self.schedule) else None
+            raise RuntimeError(f"collective {k} of call {self.calls} is "
+                               f"{entry}, call 1's was {want}")
+        if self._capturing is None:
+            return mesh.run_collective(op, x, axis, src)
+        if x.dtype != torch.int64:
+            raise TypeError(f"a captured collective's input must be int64, "
+                            f"got {x.dtype}")
+        step_in, step_out = self._steps[k]
+        step_in.copy_(x)
+        self._next_segment()
+        return step_out
+
+    def _begin_segment(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        mode = "thread_local" if self.schedule else "global"
+        self._capturing[0] = graph
+        graph.capture_begin(pool=self.pool.handle, capture_error_mode=mode)
+
+    def _next_segment(self) -> None:
+        graph, done = self._capturing
+        graph.capture_end()
+        done.append(graph)
+        self._begin_segment()
 
     def _capture(self, args, inputs):
         from ace_tpu_torch import ops
@@ -209,54 +339,65 @@ class Program:
         if dtypes != {torch.int64}:
             raise TypeError(f"program inputs must be int64, got {dtypes}")
         spec, out_shapes = self._out_spec
-        sizes = [int(torch.Size(s).numel()) for s in self._in_shapes]
-        sizes += [int(torch.Size(s).numel()) for s in out_shapes]
+        step_shapes = [s for e, o in zip(self.schedule, self._step_out)
+                       for s in (e[3], o)]
+        all_shapes = self._in_shapes + out_shapes + step_shapes
+        sizes = [int(torch.Size(s).numel()) for s in all_shapes]
         offs, end = [], 0
         for n in sizes:
             offs.append(end)
             end += -(-n // _ALIGN) * _ALIGN
         buf = pool.staging(end)
         views = [buf[o:o + n].view(s) for o, n, s in zip(
-            offs, sizes, self._in_shapes + out_shapes)]
-        ins, outs = views[:len(inputs)], views[len(inputs):]
+            offs, sizes, all_shapes)]
+        n_in, n_out = len(inputs), len(out_shapes)
+        ins, outs = views[:n_in], views[n_in:n_in + n_out]
+        steps = views[n_in + n_out:]
+        self._steps = list(zip(steps[::2], steps[1::2]))
         it = iter(ins)
         sargs = [a if i in self.refs else _unflatten(_flatten(a, []), it)
                  for i, a in enumerate(args)]
         t0 = time.perf_counter()
         torch.cuda.synchronize(pool.device)
         before = ops.counter_state()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(pool.stream):
-            graph.capture_begin(pool=pool.handle)
-            try:
-                leaves = []
-                _flatten(self.fn(*sargs), leaves)
-                got = [tuple(t.shape) for t in leaves]
-                if got != out_shapes or any(t.dtype != torch.int64
-                                            for t in leaves):
-                    raise RuntimeError(f"captured outputs {got} differ "
-                                       f"from the first call's "
-                                       f"{out_shapes} or are not int64")
-                for o, t in zip(outs, leaves):
-                    o.copy_(t)
-                del leaves
-            except BaseException:
-                # end the capture before the error propagates; the error
-                # of the capture itself would only hide the first one
+        self._capturing = [None, []]
+        try:
+            with torch.cuda.stream(pool.stream):
+                self._begin_segment()
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            graph.capture_end()
+                    leaves = []
+                    _flatten(self._run_fn(sargs), leaves)
+                    got = [tuple(t.shape) for t in leaves]
+                    if got != out_shapes or any(t.dtype != torch.int64
+                                                for t in leaves):
+                        raise RuntimeError(f"captured outputs {got} differ "
+                                           f"from the first call's "
+                                           f"{out_shapes} or are not int64")
+                    for o, t in zip(outs, leaves):
+                        o.copy_(t)
+                    del leaves
+                except BaseException:
+                    # end the capture before the error propagates; the
+                    # error of the capture itself would only hide the
+                    # first one
+                    try:
+                        self._capturing[0].capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                self._capturing[0].capture_end()
+            graphs = self._capturing[1] + [self._capturing[0]]
+        finally:
+            self._capturing = None
         captured = ops.counter_delta(before)
         ops.restore_counters(before)
         if captured != self._delta:
             raise RuntimeError(f"the capture launched {captured}, the "
                                f"eager run {self._delta}")
-        self._graph = graph
+        self._graphs = graphs
         self._static = (ins, outs, buf)
         pool.captures += 1
+        pool.segments += len(graphs)
         pool.capture_s += time.perf_counter() - t0
         return self._replay(inputs)
 
@@ -265,7 +406,12 @@ class Program:
         ins, outs, _ = self._static
         for s, t in zip(ins, inputs):
             s.copy_(t)
-        self._graph.replay()
+        self._graphs[0].replay()
+        for graph, entry, mesh, (step_in, step_out) in zip(
+                self._graphs[1:], self.schedule, self._meshes, self._steps):
+            op, axis, src, _ = entry
+            step_out.copy_(mesh.run_collective(op, step_in, axis, src))
+            graph.replay()
         ops.add_counters(self._delta)
         self.pool.replays += 1
         return _unflatten(self._out_spec[0], iter([o.clone() for o in outs]))

@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Twelve phases (11 after 5; 9d after 9, then 10); any failure exits
-non-zero and prints no result line. The single-device evaluator runs
-its ops as op programs (CUDA graphs captured at an op's second call and
-replayed after, ckks/evaluator.py and utils/liftgraph.py), as the main
-path does: phases 3-8 and 10 run through them; phase 11 holds them
-against the eager path.
+non-zero and prints no result line. The evaluator runs its ops as op
+programs (CUDA graphs captured at an op's second call and replayed
+after, ckks/evaluator.py and utils/liftgraph.py), as the main path
+does: phases 3-10 run through them, those of phases 9 and 9d split at
+the meshes' collectives; phases 9, 9d and 11 hold them against the
+eager path.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
   2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
@@ -53,17 +54,23 @@ against the eager path.
      block.
   9. the digit x slot SPMD key switch (ace_tpu_torch/parallel, see
      phase_spmd) on worlds of spawned ranks that share the card through
-     gloo: rotate, mul and the conv slice at level 34 on a 3 x 2 world,
-     bit-identical to the single-device Evaluator; phase 4's model
-     through FheContext(digit_mesh=...) on a 3 x 1 world, equal to phase
-     4's output residues; one rotate on a one-rank NCCL world. The
-     kernel rows' `launches_spmd` count 9a-9b over all ranks.
+     gloo, with op programs split at the collectives: rotate, mul and
+     the conv slice at level 34 on a 3 x 2 world, three calls (eager,
+     captured, replayed) each bit-identical to the single-device
+     Evaluator, the third timed against the eager path; phase 4's model
+     through FheContext(digit_mesh=...) on a 3 x 1 world, three runs
+     equal to phase 4's output residues; three rotates through their
+     program on a one-rank NCCL world. The kernel rows' `launches_spmd`
+     count 9a-9b over all ranks.
  9d. the limb-sharded evaluator (FheContext(mesh=...), see phase_limb)
-     on a 2 x 2 (dp x limb) world sharing the card through gloo: each dp
-     row's rotate, mul, rescale and hoisted MAC bundle on its own message
-     at level 34, bit-identical to the single-device Evaluator, and phase
-     4's model, equal to phase 4's output residues; every rank launches
-     K1-K4. The kernel rows' `launches_limb` count 9d over all ranks.
+     on a 2 x 2 (dp x limb) world sharing the card through gloo, with op
+     programs split at the collectives: each dp row's rotate, mul,
+     rescale and hoisted MAC bundle on its own messages at level 34,
+     three calls each bit-identical to the single-device Evaluator, the
+     third timed against the eager path, and phase 4's model, three runs
+     equal to phase 4's output residues; every rank launches K1-K4. The
+     kernel rows' `launches_limb` count 9d over all ranks, and
+     `launches_mesh_programs` 9a-9d's calls through programs.
  10. the benchmark entry points at N = 2^16 (bench_torch.py,
      bench_micro_torch.py and the native C library of ops/native.py, see
      phase_bench): the C library's build and the one-thread CPU NTT
@@ -1419,6 +1426,7 @@ SPMD_SLOTS = 2   # 9a: Q_PARTS digits x 2 slots, six ranks sharing the card
 SPMD_ROT = 1
 SPMD_TOL = 1e-2  # the dry run's decode bound (__graft_entry__.py)
 NCCL_LEVEL = 12  # 9c: one digit (34 q primes in 3 parts of 12)
+MESH_CALLS = 3   # 9a-9d: each op and phase 4's model, through programs
 
 
 def spmd_kw(degree: int = DEGREE) -> dict:
@@ -1428,21 +1436,34 @@ def spmd_kw(degree: int = DEGREE) -> dict:
                 num_q_parts=Q_PARTS)
 
 
-def spmd_ops(ctx, msg) -> dict:
-    """9a's ops on msg encrypted at the top level: rotate by SPMD_ROT,
-    mul (mul3, then relinearize), and the dry run's conv slice
-    (scripts/torch_multichip.py's conv_slice)."""
+def _untimed(name, f):
+    return f()
+
+
+def spmd_ops(c, ct, clock=_untimed) -> dict:
+    """9a's ops on ct (at the top level) through c's evaluator (c: a
+    context, or one with another evaluator): rotate by SPMD_ROT, mul
+    (mul3, then relinearize), and the dry run's conv slice
+    (scripts/torch_multichip.py's conv_slice). clock(name, f) runs each."""
     from ace_tpu_torch.utils.scripts import load_script
-    ev = ctx.evaluator
-    ct = ctx.prepare_input(msg, "x")
-    return {"rotate": ev.rotate(ct, SPMD_ROT), "mul": ev.mul(ct, ct),
-            "conv": load_script("torch_multichip").conv_slice(ctx, ct)}
+    ev = c.evaluator
+    conv = load_script("torch_multichip").conv_slice
+    return {"rotate": clock("rotate", lambda: ev.rotate(ct, SPMD_ROT)),
+            "mul": clock("mul", lambda: ev.mul(ct, ct)),
+            "conv": clock("conv", lambda: conv(c, ct))}
 
 
 def spmd_expect(msg) -> dict:
     from ace_tpu_torch.utils.scripts import load_script
     return {"rotate": np.roll(msg, -SPMD_ROT), "mul": msg ** 2,
             "conv": load_script("torch_multichip").conv_plain(msg)}
+
+
+def mesh_msgs(seed: int, degree: int) -> list:
+    """MESH_CALLS messages of uniform(-1, 1) in N/2 slots: 9a's (and
+    9c's), or one dp row's in 9d."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1, 1, degree // 2) for _ in range(MESH_CALLS)]
 
 
 def _digest(ct, crt=None) -> str:
@@ -1476,27 +1497,133 @@ def _rank_enter(mesh, t_spawn: float) -> dict:
 
 def _rank_exit(mesh, res: dict) -> dict:
     """This rank's launches (since the last reset) and collectives, the
-    launches summed over the world, and the rank's device memory (its
-    own process's allocations: 0 on the CPU)."""
+    launches and its launches through programs (`launches_programs`)
+    summed over the world, and the rank's device memory (its own
+    process's allocations and reservations: 0 on the CPU)."""
     import torch
     from ace_tpu_torch.ops import read_counters
     res["launches"] = read_counters()
     cuda = mesh.device.type == "cuda"
-    res["allocated_b"] = torch.cuda.memory_allocated(mesh.device) if cuda \
-        else 0
-    res["max_allocated_b"] = (torch.cuda.max_memory_allocated(mesh.device)
-                              if cuda else 0)
+    for key, f in (("allocated_b", "memory_allocated"),
+                   ("max_allocated_b", "max_memory_allocated"),
+                   ("max_reserved_b", "max_memory_reserved")):
+        res[key] = getattr(torch.cuda, f)(mesh.device) if cuda else 0
     res["mesh"] = mesh.stats()
     names = sorted(res["launches"])
-    res["launches_world"] = dict(zip(names, mesh.sum_over_world(
-        [res["launches"][k] for k in names])))
+    progs = res.get("launches_programs", {})
+    total = mesh.sum_over_world([res["launches"][k] for k in names]
+                                + [progs.get(k, 0) for k in names])
+    res["launches_world"] = dict(zip(names, total[:len(names)]))
+    res["launches_programs_world"] = dict(zip(names, total[len(names):]))
     return res
 
 
-def rank_spmd_ops(mesh, kw, seed, msg, t_spawn):
-    """9a on one rank: spmd_ops through FheContext(digit_mesh=mesh)."""
+def _add_launches(acc: dict, delta: dict) -> None:
+    for (k, attr), v in delta.items():
+        if attr == "launches":
+            acc[k] = acc.get(k, 0) + v
+
+
+def _clock(sync, times: dict, deltas: dict):
+    """clock(name, f) for spmd_ops and limb_ops: f() between two
+    synchronizations, its seconds into times[name] and its
+    kernel-counter growth into deltas[name]."""
+    from ace_tpu_torch.ops import counter_delta, counter_state
+
+    def clock(name, f):
+        sync()
+        before = counter_state()
+        t0 = time.perf_counter()
+        out = f()
+        sync()
+        times[name] = time.perf_counter() - t0
+        deltas[name] = counter_delta(before)
+        return out
+    return clock
+
+
+def mesh_op_calls(ctx, eager, run_ops, msgs, sync, crt=None) -> dict:
+    """run_ops (spmd_ops or limb_ops) through ctx's evaluator, programs
+    on, on each message of msgs encrypted in turn (its programs' calls
+    1, 2 and 3), then on the last ciphertext again through `eager` (ctx
+    with an evaluator of programs=False): each call's digests (`crt`: a
+    limb-sharded context, whose digests gather) and op seconds; the
+    eager call's too. Raises when the eager call's digests or any op's
+    kernel-counter growth differ from the third call's. Also returns the
+    launches of the calls through programs."""
+    calls, launches = [], {}
+    for msg in msgs:
+        ct = ctx.prepare_input(msg, "x")
+        times, deltas = {}, {}
+        outs = run_ops(ctx, ct, _clock(sync, times, deltas))
+        for d in deltas.values():
+            _add_launches(launches, d)
+        calls.append({"digests": {k: _digest(v, crt)
+                                  for k, v in outs.items()},
+                      "s": times, "deltas": deltas})
+    times, deltas = {}, {}
+    outs = run_ops(eager, ct, _clock(sync, times, deltas))
+    eager_call = {"digests": {k: _digest(v, crt) for k, v in outs.items()},
+                  "s": times}
+    if eager_call["digests"] != calls[-1]["digests"]:
+        raise AssertionError("the third call through programs differs from "
+                             "the eager evaluator's on the same input")
+    bad = [k for k in deltas if deltas[k] != calls[-1]["deltas"][k]]
+    if bad:
+        raise AssertionError(f"ops {bad}: a replay's kernel-counter growth "
+                             f"differs from the eager call's")
+    for c in calls:
+        del c["deltas"]
+    return {"calls": calls, "eager": eager_call, "launches": launches}
+
+
+def mesh_model_runs(model, ctx, img, want, sync, crt=None) -> dict:
+    """Phase 4's model MESH_CALLS times through ctx's programs:
+    infer_encrypted, then the runner again on that run's input
+    ciphertext. Each run's seconds, whether its output residues (gathered
+    under a limb-sharded `crt`) equal `want` (phase 4's), its output
+    level, and the runs' launches."""
+    from ace_tpu_torch.models import resnet as M
+    from ace_tpu_torch.ops import counter_delta, counter_state, modops
+    runs, launches = [], {}
+    ct_in = None
+    for k in range(MESH_CALLS):
+        before = counter_state()
+        t0 = time.perf_counter()
+        if ct_in is None:
+            M.infer_encrypted(model, img)
+            ct_in = ctx.get_input_data("input")
+            out = ctx.get_output_data("output")
+        else:
+            out = model.runner.run(ct_in)
+        sync()
+        secs = time.perf_counter() - t0
+        _add_launches(launches, counter_delta(before))
+        equal = all(
+            np.array_equal(modops.to_numpy(
+                p.data if crt is None else crt.gather_poly(p)), w)
+            for p, w in zip((out.c0, out.c1), want))
+        runs.append({"s": secs, "equal": equal, "level": out.level})
+    return {"runs": runs, "launches": launches}
+
+
+def _programs_report(ev) -> dict:
+    """The rank's op programs: pool counts, segments per kind (program
+    key's first item; SpmdKeySwitch's as "spmd rot" / "spmd relin")."""
+    segs = ev.program_segments()
+    return {"stats": ev.program_stats(),
+            "segments": {k: sorted(set(v)) for k, v in segs.items()},
+            "programs_by_kind": {k: len(v) for k, v in segs.items()}}
+
+
+def rank_spmd_ops(mesh, kw, seed, msgs, t_spawn):
+    """9a on one rank: spmd_ops through FheContext(digit_mesh=mesh) with
+    programs on, on each of msgs (mesh_op_calls), the third against an
+    SpmdEvaluator with programs off on the same keys."""
+    import types
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.ops import reset_counters
+    from ace_tpu_torch.parallel.spmd_eval import SpmdEvaluator
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
@@ -1506,28 +1633,33 @@ def rank_spmd_ops(mesh, kw, seed, msg, t_spawn):
                      digit_mesh=mesh)
     sync()
     res["setup_s"] = time.perf_counter() - t0
+    ev = ctx.evaluator
+    eager = types.SimpleNamespace(
+        evaluator=SpmdEvaluator(ctx.params, ctx.keygen, ctx.encoder, mesh,
+                                programs=False),
+        encoder=ctx.encoder, params=ctx.params)
     reset_counters()
     mesh.reset_stats()
     t0 = time.perf_counter()
-    outs = spmd_ops(ctx, msg)
-    sync()
+    calls = mesh_op_calls(ctx, eager, spmd_ops, msgs, sync)
     res["ops_s"] = time.perf_counter() - t0
-    ev = ctx.evaluator
-    res["digests"] = {k: _digest(v) for k, v in outs.items()}
+    res["calls"], res["eager"] = calls["calls"], calls["eager"]
+    res["launches_programs"] = calls["launches"]
     res["switches"] = ev.spmd_switches
     res["resident"] = {lv: k.key_memory_resident_bytes()
                        for lv, k in ev._spmd.items() if k is not None}
     res["full_keys_b"] = sum(k.nbytes for k in ctx.keygen.all_keys())
     res["report"] = ev.key_residency_report()
+    res["programs"] = _programs_report(ev)
     return _rank_exit(mesh, res)
 
 
 def rank_spmd_model(mesh, sm, want, t_spawn):
     """9b on one rank: phase 4's model through compile_model and
-    infer_encrypted with FheContext(digit_mesh=mesh); its output
-    residues against phase 4's (`want`)."""
+    FheContext(digit_mesh=mesh), programs on, MESH_CALLS times
+    (mesh_model_runs); its output residues against phase 4's (`want`)."""
     from ace_tpu_torch.models import resnet as M
-    from ace_tpu_torch.ops import modops, reset_counters
+    from ace_tpu_torch.ops import reset_counters
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
@@ -1542,21 +1674,19 @@ def rank_spmd_model(mesh, sm, want, t_spawn):
     reset_counters()
     mesh.reset_stats()
     t0 = time.perf_counter()
-    M.infer_encrypted(model, sm["img"])
-    sync()
+    runs = mesh_model_runs(model, ctx, sm["img"], want, sync)
     res["inference_s"] = time.perf_counter() - t0
-    ct = ctx.get_output_data("output")
-    res["level"] = ct.level
-    res["equal"] = (np.array_equal(modops.to_numpy(ct.c0.data), want[0])
-                    and np.array_equal(modops.to_numpy(ct.c1.data),
-                                       want[1]))
+    res["runs"] = runs["runs"]
+    res["launches_programs"] = runs["launches"]
     res["switches"] = ctx.evaluator.spmd_switches
     res["report"] = ctx.evaluator.key_residency_report()
+    res["programs"] = _programs_report(ctx.evaluator)
     return _rank_exit(mesh, res)
 
 
-def rank_one(mesh, kw, seed, msg, level, t_spawn):
-    """9c on a one-rank world: SpmdKeySwitch.rotate at `level`."""
+def rank_one(mesh, kw, seed, msgs, level, t_spawn):
+    """9c on a one-rank world: SpmdKeySwitch.rotate at `level` through
+    its program on each of msgs (calls 1-3: eager, captured, replayed)."""
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.ops import reset_counters
     from ace_tpu_torch.parallel.spmd import SpmdKeySwitch
@@ -1564,13 +1694,17 @@ def rank_one(mesh, kw, seed, msg, level, t_spawn):
     from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
     ctx = FheContext(CkksParams(**kw, device=mesh.device), seed=seed)
-    ct = ctx.prepare_input(msg, "x", level=level)
     ksw = SpmdKeySwitch(ctx.params, level, mesh)
     reset_counters()
     mesh.reset_stats()
-    res["digest"] = _digest(ksw.rotate(ct, SPMD_ROT, ctx.keygen))
+    res["digests"] = []
+    for msg in msgs:
+        ct = ctx.prepare_input(msg, "x", level=level)
+        res["digests"].append(_digest(ksw.rotate(ct, SPMD_ROT, ctx.keygen)))
     syncer(mesh.device)()
     res["switches"] = ksw.switches
+    res["segments"] = ksw._jit_cache["rot"].segments
+    res["stats"] = ksw.pool.stats()
     return _rank_exit(mesh, res)
 
 
@@ -1583,8 +1717,72 @@ def _rank_line(tag: str, r: int, res: dict, *keys) -> None:
         + f"{res['switches']} SPMD key switches; {m['collectives']} "
         f"collectives {m['collective_s']:.2f} s, staged {m['staged_bytes']}"
         f" B in {m['staged_s']:.2f} s; device memory allocated "
-        f"{res['allocated_b']} B, peak {res['max_allocated_b']} B; launches "
-        f"{res['launches']}")
+        f"{res['allocated_b']} B, peak {res['max_allocated_b']} B, peak "
+        f"reserved {res['max_reserved_b']} B; launches {res['launches']}")
+
+
+def _programs_line(tag: str, r: int, res: dict) -> None:
+    p = res["programs"]
+    st = p["stats"]
+    log(f"{tag} rank {r} programs: {st['cached']} cached of "
+        f"{st['programs']} lifted, by kind {p['programs_by_kind']}, "
+        f"segments by kind {p['segments']}; {st['captures']} captured "
+        f"({st['segments']} graph segments) in {st['capture_s']:.2f} s; "
+        f"{st['replays']} replays; staging {st['staging_bytes']} B, graph "
+        f"pool {st['pool_bytes']} B")
+
+
+def _calls_line(tag: str, r: int, res: dict) -> None:
+    """Each op's seconds at each call through programs and eagerly."""
+    ops_ = list(res["eager"]["s"])
+    log(f"{tag} rank {r} op seconds, calls 1 / 2 / 3 through programs -> "
+        f"eager on call 3's input: " + "; ".join(
+            f"{k} " + " / ".join(f"{c['s'][k]:.4f}" for c in res["calls"])
+            + f" -> {res['eager']['s'][k]:.4f}" for k in ops_))
+
+
+def _check_calls(tag: str, ranks: list, want: list, rows=None) -> None:
+    """Every call of every rank (of dp row `rows(r)`) equal to the
+    single-device digests `want[row][call]`."""
+    for r, res in enumerate(ranks):
+        ref = want[rows(r) if rows else 0]
+        bad = [k for k, c in enumerate(res["calls"]) if c["digests"]
+               != ref[k]]
+        if bad:
+            raise AssertionError(f"{tag} rank {r}: calls {[k + 1 for k in bad]}"
+                                 f" through programs differ from the "
+                                 f"single-device Evaluator")
+
+
+def _check_runs(tag: str, ranks: list) -> None:
+    bad = {r: [k + 1 for k, x in enumerate(res["runs"]) if not x["equal"]]
+           for r, res in enumerate(ranks)}
+    if any(bad.values()):
+        raise AssertionError(f"{tag} runs whose output residues differ from "
+                             f"phase 4's, by rank: {bad}")
+
+
+def _runs_text(ranks: list) -> str:
+    return "; ".join(f"rank {r} " + " / ".join(f"{x['s']:.2f}"
+                                               for x in res["runs"])
+                     for r, res in enumerate(ranks))
+
+
+def mesh_summary(op_ranks: list, model_ranks: list) -> str:
+    """Rank 0's op seconds at call 3 through programs against eager, its
+    model runs' seconds, and each rank's graph pool and peak reserved
+    memory."""
+    r0 = op_ranks[0]
+    ops_ = ", ".join(f"{k} {r0['eager']['s'][k]:.4f} -> "
+                     f"{r0['calls'][-1]['s'][k]:.4f}"
+                     for k in r0["eager"]["s"])
+    runs = " / ".join(f"{x['s']:.2f}" for x in model_ranks[0]["runs"])
+    mem = "; ".join(
+        f"rank {r} pool {res['programs']['stats']['pool_bytes']} B, peak "
+        f"reserved {res['max_reserved_b']} B"
+        for r, res in enumerate(model_ranks))
+    return (f"rank 0 op s eager -> replayed (call 3) {ops_}; model runs "
+            f"{runs} s; {mem}")
 
 
 def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
@@ -1592,23 +1790,29 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
     """The digit x slot SPMD key switch (ace_tpu_torch/parallel) on three
     worlds of spawned ranks, every rank on the same card (gloo stages
     the collectives through the host; NCCL refuses two ranks on one
-    device):
-      a. a Q_PARTS x SPMD_SLOTS gloo world: spmd_ops at the top level, every
-         rank bit-identical to the single-device Evaluator under the same
-         seeded keys, decoding within SPMD_TOL of the plain values; each
-         rank stacks 1/(D*s) of every key it used (its KeyGenerator
-         still holds the full keys: the rank lines give its device
-         memory);
+    device), with op programs on (split at the collectives,
+    utils/liftgraph.py):
+      a. a Q_PARTS x SPMD_SLOTS gloo world: spmd_ops at the top level on
+         MESH_CALLS messages (calls 1, 2, 3 of the programs: eager,
+         captured, replayed), every call on every rank bit-identical to
+         the single-device Evaluator under the same seeded keys, decoding
+         within SPMD_TOL of the plain values; the third call timed op by
+         op against an SpmdEvaluator with programs off on the same input,
+         equal to it with equal kernel-counter growth; each rank stacks
+         1/(D*s) of every key it used (its KeyGenerator still holds the
+         full keys: the rank lines give its device memory);
       b. a Q_PARTS x 1 gloo world: `sm` (phase 4's model) through
-         compile_model and infer_encrypted with FheContext(digit_mesh=),
-         the output residues equal to `want` (phase 4's), with at least
-         one SPMD key switch on every rank;
+         compile_model with FheContext(digit_mesh=), MESH_CALLS runs, each
+         output's residues equal to `want` (phase 4's), with at least one
+         SPMD key switch on every rank;
       c. a one-rank world on NCCL (gloo on the CPU, where NCCL does not
-         run): SpmdKeySwitch.rotate at level NCCL_LEVEL (one digit),
-         equal to the single-device rotate.
+         run): SpmdKeySwitch.rotate at level NCCL_LEVEL (one digit)
+         through its program, MESH_CALLS times, each equal to the
+         single-device rotate; between the replays the steps run NCCL.
     Every rank must launch K1 in a and b. Returns the kernels' launches
-    in a and b summed over the ranks, and the seconds of each part.
-    device=None is the card; "cpu" rehearses every part on gloo."""
+    in a and b summed over the ranks, those through programs there, and
+    the seconds of each part. device=None is the card; "cpu" rehearses
+    every part on gloo."""
     import torch
     from ace_tpu_torch import resolve_device
     from ace_tpu_torch.ckks.params import CkksParams
@@ -1632,7 +1836,7 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
         dev = torch.device("cuda", dev.index or 0)
         torch.cuda.empty_cache()
     sync = syncer(dev)
-    msg = np.random.default_rng(SEED + 9).uniform(-1, 1, kw["degree"] // 2)
+    msgs = mesh_msgs(SEED + 9, kw["degree"])
     secs = {}
 
     def world(fn, d, s, backend, *args):
@@ -1650,30 +1854,34 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
 
     # a. key switches on a digits x slots world
     ranks, secs["9a"] = world(rank_spmd_ops, digits, slots, "gloo", kw,
-                              SEED, msg)
+                              SEED, msgs)
     tag = "[phase 9a]"
     for r, res in enumerate(ranks):
         _rank_line(tag, r, res, "setup_s", "ops_s")
+        _programs_line(tag, r, res)
+        _calls_line(tag, r, res)
     t0 = time.perf_counter()
     params = CkksParams(**kw, device=dev)
     ctx = FheContext(params, seed=SEED)
-    ref = spmd_ops(ctx, msg)
+    want_a, first = [], None
+    for msg in msgs:
+        ref = spmd_ops(ctx, ctx.prepare_input(msg, "x"))
+        want_a.append({k: _digest(v) for k, v in ref.items()})
+        first = first or ref
     sync()
     secs["9a_single"] = time.perf_counter() - t0
-    want_a = {k: _digest(v) for k, v in ref.items()}
-    bad = [r for r, res in enumerate(ranks) if res["digests"] != want_a]
-    if bad:
-        raise AssertionError(f"{tag} ranks {bad} differ from the "
-                             f"single-device Evaluator")
-    errs, plain = {}, spmd_expect(msg)
-    for k, v in ref.items():
+    _check_calls(tag, ranks, [want_a])
+    errs, plain = {}, spmd_expect(msgs[0])
+    for k, v in first.items():
         ctx.set_output_data(k, v)
         errs[k] = float(np.max(np.abs(ctx.handle_output(k, 64)
                                       - plain[k][:64])))
     log(f"{tag} {len(ranks)} ranks ({digits} x {slots}) bit-identical to "
         f"the single-device Evaluator ({secs['9a_single']:.2f} s alone) "
-        f"for rotate, mul and the conv slice; max decode errors {errs} "
-        f"(limit {SPMD_TOL}); world {secs['9a']:.1f} s")
+        f"at each of {MESH_CALLS} calls through programs for rotate, mul "
+        f"and the conv slice, the third also equal to the eager "
+        f"SpmdEvaluator's with equal kernel counts; max decode errors "
+        f"{errs} (limit {SPMD_TOL}); world {secs['9a']:.1f} s")
     if not max(errs.values()) <= SPMD_TOL:
         raise AssertionError(f"{tag} decode errors {errs}")
     key_b = ctx.keygen.relin_key.nbytes
@@ -1694,7 +1902,9 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
         raise AssertionError(f"{tag} a rank took no SPMD key switch")
     k1_everywhere(tag, ranks)
     launches = dict(ranks[0]["launches_world"])
-    del ctx, ref
+    via = dict(ranks[0]["launches_programs_world"])
+    times = {"9a": ranks}
+    del ctx, ref, first
 
     # b. the model path on a digits x 1 world
     tag = "[phase 9b]"
@@ -1702,35 +1912,44 @@ def phase_spmd(device=None, kw: dict | None = None, sm: dict | None = None,
                                 want)
     for r, res in enumerate(ranks_b):
         _rank_line(tag, r, res, "setup_s", "inference_s")
-    if not all(res["equal"] for res in ranks_b):
-        raise AssertionError(f"{tag} output residues differ from phase 4's: "
-                             f"{[res['equal'] for res in ranks_b]}")
+        _programs_line(tag, r, res)
+    _check_runs(tag, ranks_b)
     if any(res["switches"] <= 0 for res in ranks_b):
         raise AssertionError(f"{tag} no SPMD key switch was taken: "
                              f"{[res['switches'] for res in ranks_b]}")
     k1_everywhere(tag, ranks_b)
     for k, v in ranks_b[0]["launches_world"].items():
         launches[k] += v
-    log(f"{tag} {len(ranks_b)} ranks: output (level {ranks_b[0]['level']})"
-        f" equal to phase 4's residue for residue, "
-        f"{ranks_b[0]['switches']} SPMD key switches a rank; "
-        f"{ranks_b[0]['report']}; world {secs['9b']:.1f} s")
+        via[k] += ranks_b[0]["launches_programs_world"][k]
+    times["9b"] = ranks_b
+    log(f"{tag} {len(ranks_b)} ranks: each of {MESH_CALLS} runs' output "
+        f"(level {ranks_b[0]['runs'][0]['level']}) equal to phase 4's "
+        f"residue for residue, {ranks_b[0]['switches']} SPMD key switches "
+        f"a rank; run seconds {_runs_text(ranks_b)}; {ranks_b[0]['report']};"
+        f" world {secs['9b']:.1f} s")
 
     # c. a one-rank world on NCCL
     backend = "nccl" if dev.type == "cuda" else "gloo"
     tag = f"[phase 9c {backend}]"
-    ranks_c, secs["9c"] = world(rank_one, 1, 1, backend, kw, SEED, msg,
+    ranks_c, secs["9c"] = world(rank_one, 1, 1, backend, kw, SEED, msgs,
                                 NCCL_LEVEL)
     _rank_line(tag, 0, ranks_c[0])
     ctx = FheContext(params, seed=SEED)
-    ct = ctx.prepare_input(msg, "x", level=NCCL_LEVEL)
-    if ranks_c[0]["digest"] != _digest(ctx.evaluator.rotate(ct, SPMD_ROT)):
+    want_c = [_digest(ctx.evaluator.rotate(
+        ctx.prepare_input(msg, "x", level=NCCL_LEVEL), SPMD_ROT))
+        for msg in msgs]
+    if ranks_c[0]["digests"] != want_c:
         raise AssertionError(f"{tag} SpmdKeySwitch.rotate differs from the "
                              f"single-device rotate")
+    st = ranks_c[0]["stats"]
     log(f"{tag} rotate at level {NCCL_LEVEL} ({params.crt.num_decomp(NCCL_LEVEL)}"
-        f" digit) bit-identical to the single-device rotate; world "
-        f"{secs['9c']:.1f} s")
-    return {"launches_spmd": launches, "seconds": secs}
+        f" digit) through its program, {MESH_CALLS} calls, each "
+        f"bit-identical to the single-device rotate; "
+        f"{ranks_c[0]['segments']} segments, {st['captures']} captured in "
+        f"{st['capture_s']:.2f} s, {st['replays']} replays, graph pool "
+        f"{st['pool_bytes']} B; world {secs['9c']:.1f} s")
+    return {"launches_spmd": launches, "launches_programs": via,
+            "seconds": secs, "ranks": times}
 
 
 # ---------------------------------------------------------------------------
@@ -1742,26 +1961,25 @@ LIMB_ROT = 3
 LIMB_MAC_ROTS = (1, 2, 5)
 
 
-def limb_msg(kw: dict, dp: int):
-    """9d's message of dp row `dp` (each row runs its own)."""
-    return np.random.default_rng(SEED + 90 + dp).uniform(
-        -1, 1, kw["degree"] // 2)
+def limb_msgs(kw: dict, dp: int) -> list:
+    """9d's messages of dp row `dp` (each row runs its own)."""
+    return mesh_msgs(SEED + 90 + dp, kw["degree"])
 
 
-def limb_ops(ctx, msg) -> dict:
-    """9d (i) on msg encrypted at the top level: rotate by LIMB_ROT,
-    mul + relinearize, rescale, and FheBackend.rot_ext_mac_groups over
-    LIMB_MAC_ROTS (the conv path's bundle) at the top level."""
+def limb_ops(c, ct, clock=_untimed) -> dict:
+    """9d (i) on ct (at the top level) through c's evaluator: mul +
+    relinearize, rotate by LIMB_ROT, rescale of the product, and
+    FheBackend.rot_ext_mac_groups over LIMB_MAC_ROTS (the conv path's
+    bundle). clock(name, f) runs each."""
     from ace_tpu_torch.compiler.packing import FheBackend
-    ev = ctx.evaluator
-    ct = ctx.prepare_input(msg, "x")
-    m = ev.mul(ct, ct)
-    w = np.ones(ctx.params.degree // 2)
-    be = FheBackend(ev, ctx.encoder)
-    return {"rotate": ev.rotate(ct, LIMB_ROT), "mul": m,
-            "rescale": ev.rescale(m),
-            "mac": be.rot_ext_mac_groups(ct, list(LIMB_MAC_ROTS),
-                                         [[w, w, None]])[0]}
+    ev = c.evaluator
+    m = clock("mul", lambda: ev.mul(ct, ct))
+    w = np.ones(c.params.degree // 2)
+    be = FheBackend(ev, c.encoder)
+    return {"rotate": clock("rotate", lambda: ev.rotate(ct, LIMB_ROT)),
+            "mul": m, "rescale": clock("rescale", lambda: ev.rescale(m)),
+            "mac": clock("mac", lambda: be.rot_ext_mac_groups(
+                ct, list(LIMB_MAC_ROTS), [[w, w, None]])[0])}
 
 
 def limb_expect(msg) -> dict:
@@ -1770,14 +1988,17 @@ def limb_expect(msg) -> dict:
 
 
 def rank_limb(mesh, kw, sm, want, t_spawn):
-    """9d on one rank: (i) limb_ops on its dp row's message through
-    FheContext(mesh=mesh), (ii) phase 4's model through compile_model
-    and infer_encrypted with FheContext(mesh=mesh); the gathered
-    residues' digests (i) and equality with phase 4's (ii)."""
+    """9d on one rank: (i) limb_ops on its dp row's messages through
+    FheContext(mesh=mesh), programs on (mesh_op_calls, the third call
+    against an Evaluator with programs off), (ii) phase 4's model through
+    compile_model with FheContext(mesh=mesh), MESH_CALLS runs; the
+    gathered residues' digests (i) and equality with phase 4's (ii)."""
+    import types
+    from ace_tpu_torch.ckks.evaluator import Evaluator
     from ace_tpu_torch.ckks.keygen import switch_key_nbytes
     from ace_tpu_torch.ckks.params import CkksParams
     from ace_tpu_torch.models import resnet as M
-    from ace_tpu_torch.ops import modops, reset_counters
+    from ace_tpu_torch.ops import reset_counters
     from ace_tpu_torch.runtime.context import FheContext
     from ace_tpu_torch.utils.card import syncer
     res = _rank_enter(mesh, t_spawn)
@@ -1791,16 +2012,21 @@ def rank_limb(mesh, kw, sm, want, t_spawn):
     res["rows"] = crt.local(range(crt.num_q + crt.num_p))
     res["key_b"] = ctx.keygen.relin_key.nbytes
     res["key_total_b"] = switch_key_nbytes(ctx.params)
+    eager = types.SimpleNamespace(
+        evaluator=Evaluator(ctx.params, ctx.keygen, ctx.encoder,
+                            programs=False),
+        encoder=ctx.encoder, params=ctx.params)
     reset_counters()
     mesh.reset_stats()
     t0 = time.perf_counter()
-    outs = limb_ops(ctx, limb_msg(kw, mesh.dp))
-    sync()
+    calls = mesh_op_calls(ctx, eager, limb_ops, limb_msgs(kw, mesh.dp),
+                          sync, crt)
     res["ops_s"] = time.perf_counter() - t0
     res["ops_mesh"] = mesh.stats()
-    res["digests"] = {k: _digest(v, crt) for k, v in outs.items()}
+    res["calls"], res["eager"] = calls["calls"], calls["eager"]
     res["keys_b"] = ctx.key_memory_bytes()  # relin + the four rotations
-    del ctx, outs
+    res["ops_programs"] = _programs_report(ctx.evaluator)
+    del ctx, eager
     t0 = time.perf_counter()
     mctx = FheContext(scheme_info=sm["info"], max_rot_keys=100,
                       device=mesh.device, mesh=mesh)
@@ -1810,37 +2036,40 @@ def rank_limb(mesh, kw, sm, want, t_spawn):
     res["model_setup_s"] = time.perf_counter() - t0
     mesh.reset_stats()
     t0 = time.perf_counter()
-    M.infer_encrypted(model, sm["img"])
-    sync()
+    runs = mesh_model_runs(model, mctx, sm["img"], want, sync,
+                           mctx.params.crt)
     res["inference_s"] = time.perf_counter() - t0
-    ct = mctx.get_output_data("output")
-    crt = mctx.params.crt
-    res["level"] = ct.level
-    res["equal"] = all(
-        np.array_equal(modops.to_numpy(crt.gather_poly(p)), w)
-        for p, w in zip((ct.c0, ct.c1), want))
+    res["runs"] = runs["runs"]
+    res["launches_programs"] = dict(calls["launches"])
+    for k, v in runs["launches"].items():
+        res["launches_programs"][k] = res["launches_programs"].get(k, 0) + v
     res["model_keys_b"] = mctx.key_memory_bytes()
+    res["programs"] = _programs_report(mctx.evaluator)
     return _rank_exit(mesh, res)
 
 
 def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
                want=None) -> dict:
     """The limb-sharded evaluator (FheContext(mesh=...), CrtContext.shard)
-    on a LIMB_DP x LIMB_N gloo world whose ranks share the card (gloo
-    stages each gather and broadcast through the host):
-      i. each dp row runs limb_ops on its own message at ResNet-20's ring
-         and chain; every rank's gathered residues must equal the
+    with op programs on (split at the gathers and broadcasts,
+    utils/liftgraph.py) on a LIMB_DP x LIMB_N gloo world whose ranks share
+    the card (gloo stages each gather and broadcast through the host):
+      i. each dp row runs limb_ops on its own MESH_CALLS messages at
+         ResNet-20's ring and chain (calls 1, 2, 3 of the programs); every
+         rank's gathered residues at every call must equal the
          single-device Evaluator's on that message under the same seeded
-         keys, which decode within SPMD_TOL;
-      ii. each dp row runs `sm` (phase 4's model) through compile_model
-         and infer_encrypted; the gathered output residues must equal
+         keys, which decode within SPMD_TOL; the third call is timed op
+         by op against an Evaluator with programs off on the same input,
+         equal to it with equal kernel-counter growth;
+      ii. each dp row runs `sm` (phase 4's model) through compile_model,
+         MESH_CALLS runs; every run's gathered output residues must equal
          `want` (phase 4's);
       iii. on the card, every rank must launch K1, K2, K3 and K4.
     Each rank holds its own limbs only (limb g on limb rank g mod
     LIMB_N), so its bytes of each key are its rows' share of
     switch_key_nbytes. Returns the launches of i-ii summed over the
-    ranks, the smallest per rank, and the seconds.
-    device=None is the card; "cpu" rehearses it on gloo."""
+    ranks, those through programs, the smallest per rank, and the
+    seconds. device=None is the card; "cpu" rehearses it on gloo."""
     import torch
     from ace_tpu_torch import resolve_device
     from ace_tpu_torch.ckks.params import CkksParams
@@ -1876,43 +2105,51 @@ def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
             f"setup {res['setup_s']:.2f} s, ops {res['ops_s']:.2f} s "
             f"({mo['collectives']} collectives {mo['collective_s']:.2f} s, "
             f"staged {mo['staged_bytes']} B in {mo['staged_s']:.2f} s); "
-            f"model setup {res['model_setup_s']:.2f} s, inference "
+            f"model setup {res['model_setup_s']:.2f} s, {MESH_CALLS} runs "
             f"{res['inference_s']:.2f} s ({m['collectives']} collectives "
             f"{m['collective_s']:.2f} s, staged {m['staged_bytes']} B in "
-            f"{m['staged_s']:.2f} s); device memory allocated "
-            f"{res['allocated_b']} B, peak {res['max_allocated_b']} B; "
-            f"launches {res['launches']}")
+            f"{m['staged_s']:.2f} s), run seconds "
+            + " / ".join(f"{x['s']:.2f}" for x in res["runs"])
+            + f"; device memory allocated {res['allocated_b']} B, peak "
+            f"{res['max_allocated_b']} B, peak reserved "
+            f"{res['max_reserved_b']} B; launches {res['launches']}")
+        _programs_line(f"{tag} i:", r, dict(res, programs=res["ops_programs"]))
+        _programs_line(f"{tag} ii:", r, res)
+        _calls_line(tag, r, res)
     # i. against the single-device evaluator, one context per dp row
     t0 = time.perf_counter()
-    errs = {}
+    errs, want_i = {}, []
     for dp in range(LIMB_DP):
         ctx = FheContext(CkksParams(**kw, device=dev), seed=SEED)
-        msg = limb_msg(kw, dp)
-        ref = limb_ops(ctx, msg)
+        msgs = limb_msgs(kw, dp)
+        row = []
+        for k, msg in enumerate(msgs):
+            ref = limb_ops(ctx, ctx.prepare_input(msg, "x"))
+            row.append({k: _digest(v) for k, v in ref.items()})
+            if k == 0:
+                plain = limb_expect(msg)
+                for op, v in ref.items():
+                    ctx.set_output_data(op, v)
+                    errs[f"{op}{dp}"] = float(np.max(np.abs(
+                        ctx.handle_output(op, 64) - plain[op][:64])))
         sync()
-        want_i = {k: _digest(v) for k, v in ref.items()}
-        bad = [r for r, res in enumerate(ranks)
-               if r // LIMB_N == dp and res["digests"] != want_i]
-        if bad:
-            raise AssertionError(f"{tag} ranks {bad} (dp row {dp}) differ "
-                                 f"from the single-device Evaluator")
-        plain = limb_expect(msg)
-        for k, v in ref.items():
-            ctx.set_output_data(k, v)
-            errs[f"{k}{dp}"] = float(np.max(np.abs(
-                ctx.handle_output(k, 64) - plain[k][:64])))
+        want_i.append(row)
         del ctx, ref
     secs["9d_single"] = time.perf_counter() - t0
+    _check_calls(tag, ranks, want_i, lambda r: r // LIMB_N)
     if not max(errs.values()) <= SPMD_TOL:
         raise AssertionError(f"{tag} decode errors {errs}")
-    if ranks[0]["digests"] == ranks[LIMB_N]["digests"]:
+    if ranks[0]["calls"][0]["digests"] == ranks[LIMB_N]["calls"][0][
+            "digests"]:
         raise AssertionError(f"{tag} the dp rows' outputs agree: the rows "
                              f"did not run their own messages")
     log(f"{tag} i: {len(ranks)} ranks ({LIMB_DP} x {LIMB_N}), each dp row "
-        f"bit-identical to the single-device Evaluator on its message "
+        f"bit-identical to the single-device Evaluator on its messages at "
+        f"each of {MESH_CALLS} calls through programs "
         f"({secs['9d_single']:.2f} s for both alone) for rotate, mul, "
-        f"rescale and rot_ext_mac_groups{list(LIMB_MAC_ROTS)}; max decode "
-        f"errors {errs} (limit {SPMD_TOL})")
+        f"rescale and rot_ext_mac_groups{list(LIMB_MAC_ROTS)}, the third "
+        f"also equal to the eager Evaluator's with equal kernel counts; "
+        f"max decode errors {errs} (limit {SPMD_TOL})")
     # each rank holds its rows' share of the key, the limb ranks all of it
     lk = sum(len(res["rows"]) for res in ranks[:LIMB_N])
     for r, res in enumerate(ranks):
@@ -1924,11 +2161,10 @@ def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
         raise AssertionError(f"{tag} the limb ranks' key bytes do not add "
                              f"up to switch_key_nbytes")
     # ii.
-    if not all(res["equal"] for res in ranks):
-        raise AssertionError(f"{tag} ii: output residues differ from phase "
-                             f"4's: {[res['equal'] for res in ranks]}")
-    log(f"{tag} ii: every rank's gathered output (level {ranks[0]['level']})"
-        f" equal to phase 4's residue for residue; world {secs['9d']:.1f} s")
+    _check_runs(tag, ranks)
+    log(f"{tag} ii: every rank's gathered output (level "
+        f"{ranks[0]['runs'][0]['level']}) equal to phase 4's residue for "
+        f"residue in each of {MESH_CALLS} runs; world {secs['9d']:.1f} s")
     # iii.
     if dev.type == "cuda":
         idle = {r: [k for k, v in res["launches"].items() if v == 0]
@@ -1938,9 +2174,10 @@ def phase_limb(device=None, kw: dict | None = None, sm: dict | None = None,
                                  f"rank: {idle}")
     names = sorted(ranks[0]["launches"])
     return {"launches_limb": dict(ranks[0]["launches_world"]),
+            "launches_programs": dict(ranks[0]["launches_programs_world"]),
             "launches_min": {k: min(res["launches"][k] for res in ranks)
                              for k in names},
-            "seconds": secs}
+            "seconds": secs, "ranks": ranks}
 
 
 # ---------------------------------------------------------------------------
@@ -2457,15 +2694,26 @@ def main() -> int:
         log(f"[summary] SPMD key switch: worlds 9a {spmd['seconds']['9a']:.1f}"
             f" s, 9b {spmd['seconds']['9b']:.1f} s, 9c "
             f"{spmd['seconds']['9c']:.1f} s; launches in 9a-9b over all "
-            f"ranks {spmd['launches_spmd']}")
+            f"ranks {spmd['launches_spmd']}, through programs "
+            f"{spmd['launches_programs']}; "
+            + mesh_summary(spmd["ranks"]["9a"], spmd["ranks"]["9b"]))
         limb = phase_limb(sm=sm, want=res["residues"])
         lap("9d")
         for r in rows:
-            r["launches_limb"] = limb["launches_limb"][r["name"].split()[0]]
+            k = r["name"].split()[0]
+            r["launches_limb"] = limb["launches_limb"][k]
+            r["launches_mesh_programs"] = (spmd["launches_programs"][k]
+                                           + limb["launches_programs"][k])
+        idle = [r["name"] for r in rows if not r["launches_mesh_programs"]]
+        if idle:
+            raise AssertionError(f"kernels never launched through programs "
+                                 f"in phases 9a-9d: {idle}")
         log(f"[summary] limb-sharded evaluator: world 9d "
             f"{limb['seconds']['9d']:.1f} s; launches in 9d over all ranks "
             f"{limb['launches_limb']}, fewest on a rank "
-            f"{limb['launches_min']}")
+            f"{limb['launches_min']}, through programs "
+            f"{limb['launches_programs']}; "
+            + mesh_summary(limb["ranks"], limb["ranks"]))
         bench = phase_bench()
         lap("10")
         idle = [k for k, v in bench["launches"].items() if v == 0]

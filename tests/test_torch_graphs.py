@@ -1,5 +1,6 @@
 """PyTorch port: op programs captured as CUDA graphs on the card
-(utils/liftgraph.py through ckks/evaluator.py). Each test needs a CUDA
+(utils/liftgraph.py through ckks/evaluator.py, and split at the
+collectives of the meshes, parallel/). Each test needs a CUDA
 card and skips without one; the CPU tests of the program layer are in
 tests/test_torch_programs.py. This file imports neither jax nor ace_tpu,
 so it also runs on a machine that has only PyTorch:
@@ -66,3 +67,27 @@ def test_replays_equal_the_eager_path():
     st = prog.program_stats()
     assert st["captures"] == 4 and st["replays"] == 8  # calls 2 and 3
     assert st["pool_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_mesh_programs_split_at_collectives(tmp_path):
+    """A 2-rank gloo world sharing the card (tests/torch_mesh_program_worker.py
+    card_programs): SpmdKeySwitch.rotate on a 1 x 2 digit x slot mesh and
+    Evaluator.rescale on a 1 x 2 limb mesh, each through its program
+    (eager, captured, replayed) and eagerly on fresh ciphertexts, word for
+    word equal with equal kernel-counter growth; the programs are split
+    at their collectives (the rotate's 12 all_to_all and its slot
+    gather, its one-rank digit sum skipped; the rescale's two
+    broadcasts)."""
+    _card()
+    from ace_tpu_torch.parallel.mesh import file_rendezvous, run_world
+    from tests import torch_mesh_program_worker as W
+    kw = dict(KW, num_q=6, num_q_parts=2)
+    with file_rendezvous(str(tmp_path)) as rdv:
+        ranks = run_world(W.card_programs, 1, 2, "gloo", "cuda:0", rdv,
+                          (kw, 3))
+    for r in ranks:
+        assert r["spmd_segments"] == 14 and r["spmd_switches"] == 3
+        assert r["spmd"]["captures"] == 1 and r["spmd"]["replays"] == 2
+        assert r["limb_segments"]["rs"] == [3]
+        assert r["limb"]["captures"] == 1 and r["limb"]["replays"] == 2

@@ -467,18 +467,19 @@ def test_counter_bookkeeping_round_trip():
     assert ops.counter_state() == before
 
 
-def test_programs_on_single_device_off_under_a_mesh():
-    """FheContext: the single-device evaluator runs op programs; under a
-    limb mesh or a digit mesh the ops run eagerly (their collectives go
-    through the host, which a capture cannot hold)."""
+def test_programs_on_under_every_mesh():
+    """FheContext runs op programs on one device, under a limb mesh and
+    under a digit mesh (split at their collectives there, as ace_tpu
+    jits every bundle under either mesh); the SPMD evaluator's key
+    switches share its GraphPool."""
     kw = dict(degree=32, num_q=5, first_mod_size=33, scaling_mod_size=30,
               device="cpu")
     assert TFheContext(TParams(**kw)).evaluator.programs
     limb = types.SimpleNamespace(device=torch.device("cpu"), n_limb=1,
                                  limb=0)
-    assert not TFheContext(TParams(**kw), mesh=limb).evaluator.programs
+    assert TFheContext(TParams(**kw), mesh=limb).evaluator.programs
     spmd = TFheContext(TParams(**kw), digit_mesh=object()).evaluator
-    assert not spmd.programs and type(spmd).__name__ == "SpmdEvaluator"
+    assert spmd.programs and type(spmd).__name__ == "SpmdEvaluator"
 
 
 def test_chip_smoke_programs_phase_on_cpu():
