@@ -498,18 +498,19 @@ class BootstrapContext:
         n = ev.params.degree
         m = 2 * n
 
-        while ct.sf_degree > 1:
-            ct = ev.rescale(ct)
-        # use only the last tower: drop to level 1, to coeff form
-        k = crt.q_rows(1)
-        c0 = RnsPoly(ct.c0.data[:k], 1, 0, ct.c0.is_ntt)
-        c1 = RnsPoly(ct.c1.data[:k], 1, 0, ct.c1.is_ntt)
-        if c0.is_ntt:
-            c0 = P.from_ntt(c0, crt)
-            c1 = P.from_ntt(c1, crt)
-        c0 = P.to_ntt(P.mod_raise(c0, crt, crt.num_q), crt)
-        c1 = P.to_ntt(P.mod_raise(c1, crt, crt.num_q), crt)
-        raised = Ciphertext(c0, c1, ct.scaling_factor, 1, ct.slots)
+        with TIMING.tm("RTM_BS_MOD_RAISE"):
+            while ct.sf_degree > 1:
+                ct = ev.rescale(ct)
+            # use only the last tower: drop to level 1, to coeff form
+            k = crt.q_rows(1)
+            c0 = RnsPoly(ct.c0.data[:k], 1, 0, ct.c0.is_ntt)
+            c1 = RnsPoly(ct.c1.data[:k], 1, 0, ct.c1.is_ntt)
+            if c0.is_ntt:
+                c0 = P.from_ntt(c0, crt)
+                c1 = P.from_ntt(c1, crt)
+            c0 = P.to_ntt(P.mod_raise(c0, crt, crt.num_q), crt)
+            c1 = P.to_ntt(P.mod_raise(c1, crt, crt.num_q), crt)
+            raised = Ciphertext(c0, c1, ct.scaling_factor, 1, ct.slots)
 
         if self.is_sparse:
             # partial sums fold the sparse repeats (:1746-1756)

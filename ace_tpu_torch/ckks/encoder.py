@@ -27,6 +27,7 @@ from ace_tpu_torch.ckks.params import CkksParams
 from ace_tpu_torch.ops import modops
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
+from ace_tpu_torch.runtime.timing import timed
 
 
 @dataclasses.dataclass
@@ -158,6 +159,7 @@ class Encoder:
 
     # -- encode / decode -------------------------------------------------
 
+    @timed("RTM_PT_ENCODE", setup=True)
     def encode(self, values, level: int = 0, slots: int = 0,
                sf_degree: int = 1, extended: bool = False) -> Plaintext:
         """Encode complex slot values at (level, scale^sf_degree).
@@ -236,6 +238,7 @@ class Encoder:
     # rt_data_writer.h:62-71) with something strictly smaller: the
     # message is 8N bytes vs (level+K)*8N per-level residues.
 
+    @timed("RTM_PT_ENCODE", setup=True)
     def encode_msg(self, values, slots: int = 0) -> torch.Tensor:
         """Signed int64 coefficient message for `values` at scale Delta
         (sf_degree=1). Device [N] int64 tensor."""

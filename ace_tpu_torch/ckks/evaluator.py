@@ -33,6 +33,13 @@ Exact-semantics sources (file:line in the reference):
   mul_by_monomial:   ckks_evaluator.c:228-256
   bsgs_iter_jit:     ckks_bootstrap_context.c:1237-1383 (Rotate_iteration)
 
+Spans: each public op that the graph runner, the ReLU and the bootstrap
+call is the span CKKS::<op> (runtime/timing.py), the key-switching ones
+(mul's relinearization, rotate, conjugate and the rotation bundles)
+marked as such; those that only launch a few elementwise kernels (add,
+sub, negate, add_plain, sub_plain, mul_const, mul_integer, upscale) open
+none: their time is the enclosing span's own.
+
 Limb shard (FheContext(mesh=...), CrtContext.shard): every poly holds
 this rank's rows only; the ops below take limb positions from the CRT
 context's helpers (q_rows, local, limbs), never from a global index, so
@@ -54,6 +61,7 @@ from ace_tpu_torch.ckks.params import CkksParams
 from ace_tpu_torch.ops import modops, ntt
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
+from ace_tpu_torch.runtime.timing import timed
 from ace_tpu_torch.utils.liftgraph import GraphPool, Program, lift_graph
 
 
@@ -100,6 +108,7 @@ class Evaluator:
 
     # -- encrypt / decrypt ----------------------------------------------
 
+    @timed("CKKS::encrypt")
     def encrypt(self, plain: Plaintext) -> Ciphertext:
         kg = self.keygen
         crt = self.crt
@@ -118,6 +127,7 @@ class Evaluator:
         return Ciphertext(c0, c1, plain.scaling_factor, plain.sf_degree,
                           plain.slots)
 
+    @timed("CKKS::decrypt")
     def decrypt(self, ciph: Ciphertext) -> Plaintext:
         crt = self.crt
         level = ciph.level
@@ -175,6 +185,7 @@ class Evaluator:
         m = int(np.floor(m + 0.5)) if m >= 0 else -int(np.floor(-m + 0.5))
         return m * int(delta) ** (sf_degree - 1)
 
+    @timed("CKKS::add_const")
     def add_const(self, a: Ciphertext, val: float) -> Ciphertext:
         """Add a broadcast scalar: in NTT form the constant polynomial c
         contributes c to every slot of c0."""
@@ -196,6 +207,7 @@ class Evaluator:
 
         return self._lift(impl)
 
+    @timed("CKKS::mul_plain")
     def mul_plain(self, a: Ciphertext, plain: Plaintext) -> Ciphertext:
         level, num_p = a.level, a.c0.num_p
         fn = self._get_jit(("mp", level, num_p), self._mk_mul_plain,
@@ -232,6 +244,7 @@ class Evaluator:
                           P.mul_scalars(a.c1, scalars, self.crt),
                           a.scaling_factor, a.sf_degree, a.slots)
 
+    @timed("CKKS::mul_by_monomial")
     def mul_by_monomial(self, a: Ciphertext, power: int) -> Ciphertext:
         """Multiply by x^power (ckks_evaluator.c:228-256): the monomial's
         coefficient residues (1, or q-1 past the negacyclic wrap) are
@@ -296,6 +309,7 @@ class Evaluator:
         return Ciphertext(P.add(s0, c3.c0, crt), P.add(s1, c3.c1, crt),
                           c3.scaling_factor, c3.sf_degree, c3.slots)
 
+    @timed("CKKS::mul", keyswitch=True)
     def mul(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """mul3 + relinearize as one program, ("mulrl", level)."""
         a, b = self._adjust(a, b)
@@ -329,6 +343,7 @@ class Evaluator:
 
     # -- rescale / scale management -------------------------------------
 
+    @timed("CKKS::rescale")
     def rescale(self, a: Ciphertext) -> Ciphertext:
         assert a.level > 1
         fn = self._get_jit(("rs", a.level), self._mk_rescale, a.level)
@@ -383,6 +398,7 @@ class Evaluator:
 
     # -- rotation --------------------------------------------------------
 
+    @timed("CKKS::rotate", keyswitch=True)
     def rotate(self, a: Ciphertext, rotation: int) -> Ciphertext:
         """Slot rotation: keyswitch c1, add c0, then automorphism
         (Fast_rotate, ckks_evaluator.c:507-545). One program per
@@ -391,6 +407,7 @@ class Evaluator:
             return a
         return self._rotate_by(a, *self.keygen.rot_key(rotation))
 
+    @timed("CKKS::conjugate", keyswitch=True)
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         """Conjugation: key switch, then automorphism 2N-1, through the
         rotate program."""
@@ -423,6 +440,7 @@ class Evaluator:
 
         return self._lift(impl, refs=(2, 3))
 
+    @timed("CKKS::rotations_hoisted", keyswitch=True)
     def rotations_hoisted(self, a: Ciphertext,
                           rotations: list[int]) -> list[Ciphertext]:
         """Many rotations of one ciphertext sharing a single digit
@@ -637,6 +655,7 @@ class Evaluator:
 
     # -- the two bundles of the conv path ---------------------------------
 
+    @timed("CKKS::rot_sum_jit", keyswitch=True)
     def rot_sum_jit(self, items: list) -> Ciphertext:
         """sum_i rot(ct_i, r_i) with one trailing mod-down per chunk of
         max_bundle rotations (mod-down hoisting across different inputs,
@@ -682,6 +701,7 @@ class Evaluator:
 
         return self._lift(impl, refs=(1, 2))
 
+    @timed("CKKS::rot_ext_mac_groups_jit", keyswitch=True)
     def rot_ext_mac_groups_jit(self, ct: Ciphertext, rots: list,
                                plain_groups: list) -> list:
         """[sum_i rot(ct, rots[i]) * plain_groups[g][i] for g], with the
@@ -802,6 +822,7 @@ class Evaluator:
         return (_sum_mod(modops.barrett_mul_d(pn, ext0, qk, muh, mulo), qk),
                 _sum_mod(modops.barrett_mul_d(pn, ext1, qk, muh, mulo), qk))
 
+    @timed("CKKS::rot_mac_groups_msgs_jit", keyswitch=True)
     def rot_mac_groups_msgs_jit(self, ct: Ciphertext, rots: list,
                                 msgs: torch.Tensor) -> list:
         """[sum_i rot(ct, rots[i]) * encode(msgs[g, i]) for g] with the
@@ -865,6 +886,7 @@ class Evaluator:
 
     # -- the bootstrap's BSGS level ---------------------------------------
 
+    @timed("CKKS::bsgs_iter_jit", keyswitch=True)
     def bsgs_iter_jit(self, ct: Ciphertext, baby_rots: list,
                       giant_rots: list, msgs: torch.Tensor) -> Ciphertext:
         """One collapsed-FFT level of the bootstrap as baby-step/giant-step

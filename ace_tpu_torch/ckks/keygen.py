@@ -37,6 +37,7 @@ from ace_tpu_torch.ckks.params import CkksParams
 from ace_tpu_torch.ops import modops, ntt
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
+from ace_tpu_torch.runtime.timing import TIMING
 from ace_tpu_torch.utils import number_theory as nt
 
 
@@ -242,8 +243,9 @@ class KeyGenerator:
             [RnsPoly(a[i], crt.num_q, crt.num_p, True) for i in range(parts)])
 
     def _gen_relin_key(self) -> SwitchKey:
-        sk2 = P.mul(self.sk.ntt_sk, self.sk.ntt_sk, self.crt)
-        return self._gen_switching_key(sk2, self.sk.ntt_sk)
+        with TIMING.tm("RTM_KEYGEN", setup=True):
+            sk2 = P.mul(self.sk.ntt_sk, self.sk.ntt_sk, self.crt)
+            return self._gen_switching_key(sk2, self.sk.ntt_sk)
 
     def on_evict(self, hook) -> None:
         """Call hook(key) whenever the LRU evicts a rotation key (a bound
@@ -287,8 +289,9 @@ class KeyGenerator:
         inverse automorphism of the secret when absent."""
         key = self._rot_keys.pop(auto_idx, None)
         if key is None:
-            from ace_tpu_torch.runtime.timing import TIMING
-            with TIMING.tm("RTM_ROT_KEY_REGEN"):
+            # RTM_KEYGEN: every switching key, the secret's image included
+            with TIMING.tm("RTM_ROT_KEY_REGEN", setup=True), \
+                    TIMING.tm("RTM_KEYGEN", setup=True):
                 gen_idx = nt.mod_inv(auto_idx, 2 * self.params.degree)
                 rotated = P.automorphism(self.sk.ntt_sk, gen_idx, self.crt)
                 key = self._gen_switching_key(self.sk.ntt_sk, rotated)

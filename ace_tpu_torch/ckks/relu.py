@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from ace_tpu_torch.ckks.cheby import ChebyEvaluator
 from ace_tpu_torch.ckks.cipher import Ciphertext
+from ace_tpu_torch.runtime.timing import timed
 
 # fhe-cmplr/util/src/app_composite_poly.cxx:74-127 (depth 11, alfa 6)
 SIGN_CHEBYSHEV_DEPTH11 = [
@@ -134,6 +135,7 @@ def sign_composite(ev, ct: Ciphertext, mul_depth: int = 13,
     return out
 
 
+@timed("RTM_RELU")
 def relu(ev, ct: Ciphertext, value_range: float = 1.0,
          mul_depth: int = 13) -> Ciphertext:
     """relu(x) = x * [0.5*(sign(x/range) + 1)], with the affine factor

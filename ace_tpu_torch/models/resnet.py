@@ -339,23 +339,25 @@ def calibrate_relu_ranges(graph: NNGraph, images,
 
 def infer_encrypted(model: CompiledModel, image: np.ndarray,
                     checkpoint: str = "") -> np.ndarray:
-    """One encrypted inference; returns the first num_classes decrypted
-    output values. `checkpoint`: optional resume file (see
+    """One encrypted inference, under the span RTM_INFER (encode,
+    encrypt, the graph and the decode); returns the first num_classes
+    decrypted output values. `checkpoint`: optional resume file (see
     GraphRunner.run)."""
     from ace_tpu_torch.runtime.validate import ValidatingBackend, Shadow
-    ctx = model.ctx
-    ctx.prepare_input(image, "input", level=model.scheme.input_level)
-    x = ctx.get_input_data("input")
-    be = model.runner.be
-    if isinstance(be, ValidatingBackend):
-        msg = np.zeros(be.n_slots)
-        flat = np.asarray(image, np.float64).reshape(-1)
-        msg[:flat.size] = flat
-        x = Shadow(x, msg)
-    with TIMING.tm("RTM_MAIN_GRAPH"):
-        out = model.runner.run(x, checkpoint=checkpoint)
-    if isinstance(be, ValidatingBackend):
-        be.check(out, "graph output")
-        out = out.ct
-    ctx.set_output_data("output", out)
-    return ctx.handle_output("output", model.num_classes)
+    with TIMING.tm("RTM_INFER"):
+        ctx = model.ctx
+        ctx.prepare_input(image, "input", level=model.scheme.input_level)
+        x = ctx.get_input_data("input")
+        be = model.runner.be
+        if isinstance(be, ValidatingBackend):
+            msg = np.zeros(be.n_slots)
+            flat = np.asarray(image, np.float64).reshape(-1)
+            msg[:flat.size] = flat
+            x = Shadow(x, msg)
+        with TIMING.tm("RTM_MAIN_GRAPH"):
+            out = model.runner.run(x, checkpoint=checkpoint)
+        if isinstance(be, ValidatingBackend):
+            be.check(out, "graph output")
+            out = out.ct
+        ctx.set_output_data("output", out)
+        return ctx.handle_output("output", model.num_classes)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from ace_tpu_torch.ckks.evaluator import Evaluator
 from ace_tpu_torch.parallel.spmd import SpmdKeySwitch
+from ace_tpu_torch.runtime.timing import timed
 
 
 class SpmdEvaluator(Evaluator):
@@ -65,6 +66,7 @@ class SpmdEvaluator(Evaluator):
         """Key switches this rank took through SpmdKeySwitch."""
         return sum(k.switches for k in self._spmd.values() if k is not None)
 
+    @timed("CKKS::rotate", keyswitch=True)
     def rotate(self, a, rotation: int):
         if rotation == 0:
             return a
@@ -73,6 +75,7 @@ class SpmdEvaluator(Evaluator):
             return super().rotate(a, rotation)
         return k.rotate(a, rotation, self.keygen)
 
+    @timed("CKKS::mul", keyswitch=True)
     def mul(self, a, b):
         a, b = self._adjust(a, b)
         k = self._ksw(a.level)

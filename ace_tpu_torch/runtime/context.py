@@ -68,7 +68,7 @@ class FheContext:
             from ace_tpu_torch.ckks.keygen import switch_key_nbytes
             max_rot_keys = max(
                 16, rot_key_budget_bytes // switch_key_nbytes(params))
-        with TIMING.tm("RTM_PREPARE_CONTEXT"):
+        with TIMING.tm("RTM_PREPARE_CONTEXT", setup=True):
             self.encoder = Encoder(params)
             from ace_tpu_torch.utils.csprng import Blake2Csprng
             self.keygen = KeyGenerator(params, Blake2Csprng(seed),
@@ -162,7 +162,7 @@ class FheContext:
         from ace_tpu_torch.ckks.bootstrap import BootstrapContext
         slots = slots or self.params.degree // 2
         if slots not in self._bts:
-            with TIMING.tm("RTM_BS_SETUP"):
+            with TIMING.tm("RTM_BS_SETUP", setup=True):
                 self._bts[slots] = BootstrapContext(self.evaluator, slots)
         return self._bts[slots]
 
@@ -227,8 +227,6 @@ class FheContext:
                    for p in (*key.b, *key.a))
 
     def finalize(self) -> str:
-        with TIMING.tm("RTM_FINALIZE_CONTEXT"):
-            report = ["[RT_STAT] key memory: %.1f MB"
-                      % (self.key_memory_bytes() / 2**20)]
-            report.append(TIMING.report())
-        return "\n".join(report)
+        return "\n".join(["[RT_STAT] key memory: %.1f MB"
+                          % (self.key_memory_bytes() / 2**20),
+                          TIMING.report()])
