@@ -22,7 +22,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-SOURCES = ("modmul", "ntt")
+SOURCES = ("modmul", "ntt", "baseconv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "ace_k3_ntt_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "ace_k4_ntt_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "ace_ntt_shape": [_I, _I, _VP],
+    "ace_k5_base_conv": [_VP, _VP, _VP, _I, _I, _LL, _VP],
 }
 
 _libs: dict = {}

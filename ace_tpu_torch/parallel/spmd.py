@@ -25,8 +25,8 @@ over 'slot' of the two outputs.
 
 Kernels: the digit MAC's two products go through K1
 (modops.barrett_mul_d), the ladders' twiddle products and mod-down's
-P^-1 product through K2 (modops.shoup_mul_d); base conversion is plain
-PyTorch (poly._base_conv_data), as it is jnp code in ace_tpu.
+P^-1 product through K2 (modops.shoup_mul_d); base conversion through
+K5 (poly._base_conv_data), on the column shard's [rows, R * C/s] rows.
 
 Residues are int64. The digit sum wraps modulo 2^64 and its D terms
 are canonical, so it is exact while D * max(q) < 2^64; the D - 1

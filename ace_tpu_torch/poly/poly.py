@@ -19,7 +19,8 @@ Exact-semantics sources:
 
 Kernels: `mul` and mod-down's P^-1 product go through K1
 (modops.barrett_mul_d), `mul_scalars` and rescale's q_l^-1 product
-through K2 (modops.shoup_mul_d), every NTT through K3/K4.
+through K2 (modops.shoup_mul_d), every NTT through K3/K4, every base
+conversion (mod-up's, mod-down's) through K5 (ops/baseconv.py).
 
 Limb shard (CrtContext.shard): a poly's data holds this rank's rows
 only. Elementwise ops, `mul_scalars`, the NTTs and `automorphism` run on
@@ -38,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ace_tpu_torch.ops import modops, ntt
+from ace_tpu_torch.ops import baseconv, modops, ntt
 from ace_tpu_torch.poly.rns import CrtContext
 
 
@@ -178,12 +179,28 @@ def _coeff_auto_maps(auto_idx: int, n: int, ctx: CrtContext) -> tuple:
 
 def _base_conv_data(old_data, old_qs: list[int], new_qs: list[int],
                     hat_inv: list[int], hat_mod_new, ctx: CrtContext):
-    """Core of Fast_base_conv (polynomial.c:755-808), coefficient form.
+    """Core of Fast_base_conv (polynomial.c:755-808), coefficient form:
+    kernel K5 on the card, the plain version on the CPU.
 
     old_data: [O, N]; hat_inv[o] = (M/q_o)^-1 mod q_o;
     hat_mod_new[n][o] = (M/q_o) mod p_n.
     Returns [len(new_qs), N] canonical residues.
     """
+    if not old_data.is_cuda:
+        return _base_conv_plain(old_data, old_qs, new_qs, hat_inv,
+                                hat_mod_new, ctx)
+    # the matrix follows from the two bases and hat_inv, as for "hatmat"
+    key = ("k5", tuple(old_qs), tuple(new_qs), tuple(hat_inv))
+    consts = ctx.const(key, lambda: baseconv.constants(
+        old_qs, new_qs, hat_inv, hat_mod_new))
+    return baseconv.base_conv(old_data, consts, len(new_qs))
+
+
+def _base_conv_plain(old_data, old_qs: list[int], new_qs: list[int],
+                     hat_inv: list[int], hat_mod_new, ctx: CrtContext):
+    """The plain version of K5: _base_conv_data's arithmetic as PyTorch
+    int64 ops (a Shoup pre-multiply, a 128-bit product-sum over the
+    source rows in 32-bit halves, Barrett-128), on any device."""
     O = len(old_qs)
     old_q = ctx.column(old_qs)
     inv, inv_prec = _shoup_cols(ctx, hat_inv, old_qs)

@@ -18,7 +18,12 @@ eager path.
      word, to its plain PyTorch version on the same inputs, plus the
      K3-K4 round trip; then each kernel's time (CUDA events, see
      phase_kernels), its plain version's time, launch shape and bound;
-     then K3 and K4 likewise at the slice's own limb counts 1, 12, 34.
+     then K3 and K4 likewise at the slice's own limb counts 1, 12, 34;
+     then K5 (fast base conversion) at the key switch's two shapes,
+     12 -> 34 (digit 0's mod-up) and 12 P -> 34 q (mod-down), against
+     its plain int64 ATen chain, timed with its bound and the chain's
+     time and launches, and mod_up / mod_down at the top level timed
+     with the chain (before) and with K5 (after).
   3. exactness of whole ops: one rotate and one mul+rescale of a level-34
      ciphertext under the port's own keys, on the card and on the CPU
      (plain versions); the residues must be identical.
@@ -183,7 +188,7 @@ def phase_device_and_build() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: the four kernels at ResNet-20's shapes
+# Phase 2: the kernels at ResNet-20's shapes
 # ---------------------------------------------------------------------------
 
 def phase_kernels(crt) -> list:
@@ -294,7 +299,151 @@ def phase_kernels(crt) -> list:
         raise AssertionError("K4(K3(x)) != x")
     log("[phase 2] K4(K3(x)) == x")
     ntt_path_shapes(crt, sets)
-    return rows
+    return rows + k5_exact_and_timed(crt)
+
+
+def k5_conversions(crt, level: int = NUM_Q) -> dict:
+    """The key switch's base conversions at `level` live q limbs:
+    {name: (old_qs, new_qs, hat_inv, mat [new][old])}, digit 0's mod-up
+    (12 -> 34 at the top level) and mod-down's P -> q (12 -> 34)."""
+    sz = len(crt.parts[0])
+    compl = crt.compl_indices[level - 1][0]
+    m = crt.part_hat_mod_compl[level - 1][0]
+    return {
+        f"mod-up {sz} -> {len(compl)}": (
+            crt.parts[0][:sz], [crt.all_primes[g] for g in compl],
+            crt.part_hat_inv_mod_q[0][sz - 1],
+            [[m[i][j] for i in range(sz)] for j in range(len(compl))]),
+        f"mod-down {crt.num_p} P -> {level} q": (
+            crt.p_primes, crt.q_primes[:level], crt.p_hat_inv_mod_p,
+            crt.p_hat_mod_q[:level]),
+    }
+
+
+def k5_exact_and_timed(crt) -> list:
+    """K5 (fast base conversion) at the cell's two conversion shapes,
+    each equal word for word to its plain version (poly's
+    _base_conv_plain, the int64 ATen chain) on the same card tensors,
+    then timed like the other kernels: 20 raw launches cycling over 4
+    input sets between CUDA events, median of 10. The 4 sets (12 MB)
+    stay in L2, as K4's fresh output does for the K5 launch after it in
+    a key switch. The plain chain is timed per call with its launch
+    count. Then mod_up of each digit and mod_down at the top level (NTT
+    form), timed with CUDA events with the plain chain in K5's place
+    (before) and with K5 (after). Returns the K5 row of phase 2's
+    table."""
+    import torch
+    from ace_tpu_torch.ops import baseconv, kernels, modops
+    from ace_tpu_torch.poly import poly as P
+    rng = np.random.default_rng(SEED + 5)
+    n = crt.degree
+    lib = kernels.lib("baseconv")
+    row = None
+    for what, (old, new, hat_inv, mat) in k5_conversions(crt).items():
+        xs = [modops.to_torch(np.stack([rng.integers(0, q, n, dtype=np.uint64)
+                                        for q in old]), crt.device)
+              for _ in range(4)]
+        got = P._base_conv_data(xs[0], old, new, hat_inv, mat, crt)
+        want = P._base_conv_plain(xs[0], old, new, hat_inv, mat, crt)
+        torch.cuda.synchronize()
+        err = int((got != want).sum().item())
+        if err:
+            raise AssertionError(f"K5 {what}: {err} residues differ from "
+                                 f"the plain version")
+        consts = crt.const(("k5", tuple(old), tuple(new), tuple(hat_inv)),
+                           lambda: None)
+        out = torch.empty_like(got)
+        st = kernels.stream_ptr(out)
+        O, J = len(old), len(new)
+
+        def launch(i):
+            kernels.check(lib.ace_k5_base_conv(
+                xs[i % 4].data_ptr(), consts.data_ptr(), out.data_ptr(), O,
+                J, n, st), "K5 base_conv")
+        ms = time_ms(launch, reps=10, batch=20)
+        wrap_ms = time_ms(lambda i: P._base_conv_data(
+            xs[i % 4], old, new, hat_inv, mat, crt), reps=10)
+        chain = count_cuda_launches(lambda: P._base_conv_plain(
+            xs[0], old, new, hat_inv, mat, crt))
+        plain_ms = time_ms(lambda i: P._base_conv_plain(
+            xs[i % 4], old, new, hat_inv, mat, crt), reps=10)
+        nbytes = (O + J) * n * 8
+        imads = n * (O * J * (MUL_HI + MUL_LO) + O * SHOUP_IMAD
+                     + J * (BARRETT_IMAD - MUL_HI - MUL_LO))
+        b_ms, b_by = bound(nbytes, imads)
+        log(f"[phase 2] K5 base_conv {what} at N = {n}: exact; kernel "
+            f"{ms:.4f} ms (wrapper call {wrap_ms:.4f} ms, plain ATen chain "
+            f"{plain_ms:.4f} ms in {chain} launches); bound {b_ms:.4f} ms "
+            f"by {b_by} ({nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M IMAD) "
+            f"= {100 * b_ms / ms:.0f}% of roofline; grid {-(-n // 128)} x "
+            f"{-(-J // baseconv.slice_rows(J))} blocks of 128 threads, "
+            f"{baseconv.slice_rows(J)} target rows a block")
+        if row is None:
+            row = {"name": "K5 base_conv", "route": "cuda",
+                   "source": "ace_tpu_torch/csrc/baseconv.cu",
+                   "replaces": "none (ace_tpu's base conversion is jnp "
+                               "code, poly/poly.py _base_conv_data)",
+                   "launches": 0, "max_abs_err": 0, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None,
+                   "plain_launches": chain}
+        row.setdefault("by_shape", {})[what] = {
+            "ms": ms, "bound_ms": b_ms, "plain_ms": plain_ms}
+    k5_key_switch_timed(crt, rng)
+    return [row]
+
+
+def count_cuda_launches(fn) -> int:
+    """Device kernels one call of fn launches, read from torch.profiler
+    (0 where the profiler records nothing)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def k5_key_switch_timed(crt, rng, level: int = NUM_Q) -> None:
+    """mod_up of each digit and mod_down at `level` (NTT form), each
+    timed with CUDA events (median of 10 samples of 5 calls), with the
+    plain chain in K5's place and with K5; both give the same words."""
+    import torch
+    from ace_tpu_torch.ops import modops
+    from ace_tpu_torch.poly import poly as P
+
+    def data(primes):
+        return modops.to_torch(np.stack([rng.integers(0, q, crt.degree,
+                                                      dtype=np.uint64)
+                                         for q in primes]), crt.device)
+    x = data(crt.q_primes[:level])
+    xp = data(crt.q_primes[:level] + crt.p_primes)
+    digits = crt.num_decomp(level)
+    steps = {f"mod_up digit {d}": (lambda d=d: P.mod_up(P.decompose(
+        P.RnsPoly(x, level, 0, True), crt, d), crt, level, d).data)
+        for d in range(digits)}
+    steps["mod_down"] = lambda: P.mod_down(
+        P.RnsPoly(xp, level, crt.num_p, True), crt).data
+    k5 = P._base_conv_data
+    res = {}
+    for name, fn in steps.items():
+        after_out = fn()
+        after = time_ms(lambda i: fn(), reps=10, batch=5)
+        P._base_conv_data = P._base_conv_plain
+        try:
+            before_out = fn()
+            before = time_ms(lambda i: fn(), reps=10, batch=5)
+        finally:
+            P._base_conv_data = k5
+        if not torch.equal(after_out, before_out):
+            raise AssertionError(f"{name} with K5 differs from the plain "
+                                 f"chain")
+        res[name] = (before, after)
+    log("[phase 2] key switch at level " + str(level) + ", before (plain "
+        "chain) -> after (K5), ms: " + ", ".join(
+            f"{k} {b:.3f} -> {a:.3f}" for k, (b, a) in res.items()))
 
 
 def ntt_shape(L: int, n: int) -> str:
