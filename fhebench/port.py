@@ -1,7 +1,9 @@
 """The system under test, as the benchmark drives it: the PyTorch port
-`ace_tpu_torch`. This is the only module of the harness that imports the
+`ace_tpu_torch`. Beside spans.py, which reads the program's span
+records, this is the only module of the harness that imports the
 program. It turns the harness's network and weights into the program's
-graph, compiles it, runs the timed entry and, in a traced run, installs
+graph, builds the program's SchemeConfig from the configuration's
+`scheme`, compiles, runs the timed entry and, in a traced run, installs
 the harness's spans and op log on the program's public methods by module
 attribute, and removes them again.
 """
@@ -9,6 +11,7 @@ attribute, and removes them again.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import time
 
@@ -72,23 +75,46 @@ def graph(net: list, weights: dict) -> NNGraph:
                    net[-1].output)
 
 
+# the scheme keys every configuration states; `relu_ranges` names a table
+# of compiler/relu_ranges.py, which gives SchemeConfig's relu_value_range
+# and relu_ranges
+REQUIRED = ("security_level", "hamming_weight", "first_mod_size",
+            "scaling_mod_size", "relu_mul_depth", "relu_ranges",
+            "use_bootstrap")
+
+
+def scheme_options(scheme: dict) -> dict:
+    """SchemeConfig's keyword arguments that a configuration's `scheme`
+    states as they are: every key but `relu_ranges`, each a field of
+    SchemeConfig. Raises KeyError for a required key it lacks, and
+    ValueError, naming the key, for one that names no field or for
+    `relu_value_range`, which the table gives."""
+    fields = {f.name for f in dataclasses.fields(SchemeConfig)}
+    for key in scheme:
+        if key == "relu_value_range":
+            raise ValueError("scheme key 'relu_value_range': the table "
+                             "that relu_ranges names gives it")
+        if key not in fields:
+            raise ValueError(f"scheme key {key!r} names no field of "
+                             f"SchemeConfig")
+    missing = [k for k in REQUIRED if k not in scheme]
+    if missing:
+        raise KeyError(f"scheme lacks the required keys {missing}")
+    return {k: v for k, v in scheme.items() if k != "relu_ranges"}
+
+
 class Program:
     """One compiled model of the program and its timed entry."""
 
     def __init__(self, net: list, weights: dict, calibration: np.ndarray,
                  scheme: dict, outputs: int, device):
+        options = scheme_options(scheme)
         self.graph = graph(net, weights)
         vr_default, vr = ranges_for(scheme["relu_ranges"])
         vr_default, vr = resnet.calibrate_relu_ranges(
             self.graph, calibration, vr_default, vr)
-        cfg = SchemeConfig(
-            security_level=scheme["security_level"],
-            hamming_weight=scheme["hamming_weight"],
-            first_mod_size=scheme["first_mod_size"],
-            scaling_mod_size=scheme["scaling_mod_size"],
-            relu_mul_depth=scheme["relu_mul_depth"],
-            relu_value_range=vr_default, relu_ranges=vr,
-            use_bootstrap=scheme["use_bootstrap"])
+        cfg = SchemeConfig(**options, relu_value_range=vr_default,
+                           relu_ranges=vr)
         self.model = resnet.compile_model(self.graph, cfg,
                                           num_classes=outputs, device=device)
         self.cuda = self.model.ctx.device.type == "cuda"
