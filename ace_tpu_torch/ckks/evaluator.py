@@ -58,7 +58,7 @@ from ace_tpu_torch.ckks.cipher import Ciphertext, Ciphertext3
 from ace_tpu_torch.ckks.encoder import Encoder, Plaintext
 from ace_tpu_torch.ckks.keygen import KeyGenerator, SwitchKey
 from ace_tpu_torch.ckks.params import CkksParams
-from ace_tpu_torch.ops import modops, ntt
+from ace_tpu_torch.ops import lift, modops, ntt
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
 from ace_tpu_torch.runtime.timing import timed
@@ -798,12 +798,12 @@ class Evaluator:
         return self._lift(impl, refs=(2, 3))
 
     def _lift_msgs(self, msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
-        """int64 messages [..., N] -> canonical residues [..., LK, N] at
-        the moduli qk [LK, 1] (bit-exact encoder._signed_to_rns)."""
-        neg = msg < 0
-        mag = torch.where(neg, -msg, msg)
-        r = modops.mod_u64(mag[..., None, :], qk, muh, mulo)
-        return torch.where(neg[..., None, :] & (r != 0), qk - r, r)
+        """int64 messages [R, N] -> canonical residues [R, LK, N] at the
+        moduli qk [LK, 1] (bit-exact encoder._signed_to_rns): kernel K6
+        (ops/lift.py) on the card, the plain version on the CPU."""
+        if msg.is_cuda:
+            return lift.lift_msgs(msg, qk, muh, mulo)
+        return _lift_msgs_plain(msg, qk, muh, mulo)
 
     def _mac_msgs(self, msgs: torch.Tensor, ext0: torch.Tensor,
                   ext1: torch.Tensor, idx: list) -> tuple:
@@ -957,6 +957,16 @@ class Evaluator:
             return P.mod_down(out0, crt).data, P.mod_down(out1, crt).data
 
         return self._lift(impl, refs=(2, 3, 4, 5))
+
+
+def _lift_msgs_plain(msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
+    """The plain version of K6: int64 messages [..., N] -> canonical
+    residues [..., LK, N] at the moduli qk [LK, 1] as PyTorch int64 ops
+    (mod_u64's Barrett-128 in 32-bit halves), on any device."""
+    neg = msg < 0
+    mag = torch.where(neg, -msg, msg)
+    r = modops.mod_u64(mag[..., None, :], qk, muh, mulo)
+    return torch.where(neg[..., None, :] & (r != 0), qk - r, r)
 
 
 def _sum_mod(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

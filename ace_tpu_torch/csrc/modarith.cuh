@@ -41,3 +41,15 @@ __device__ __forceinline__ u64 barrett_reduce_128(u64 v_hi, u64 v_lo, u64 q,
     r = r >= q ? r - q : r;
     return r;
 }
+
+// v mod q for a full-range unsigned v: barrett_reduce_128 with v_hi = 0
+// (ops/modops.py mod_u64), its zero products left out.
+__device__ __forceinline__ u64 mod_u64(u64 v, u64 q, u64 mu_hi, u64 mu_lo) {
+    u64 left_h = __umul64hi(v, mu_lo);
+    u64 tmp1 = v * mu_hi + left_h;
+    u64 quot = __umul64hi(v, mu_hi) + (tmp1 < left_h ? 1ull : 0ull);
+    u64 r = v - quot * q;
+    r = r >= q ? r - q : r;
+    r = r >= q ? r - q : r;
+    return r;
+}

@@ -1,14 +1,15 @@
 def kernel_wrappers() -> dict:
-    """The wrappers of the five CUDA kernels by name: K1 (Barrett
+    """The wrappers of the six CUDA kernels by name: K1 (Barrett
     product), K2 (Shoup product), K3 and K4 (forward and inverse NTT),
-    K5 (fast base conversion).
+    K5 (fast base conversion), K6 (the plaintext-message lift).
     Each counts in `launches` the calls that launched its kernel, never
     one that ran the plain version on the CPU; K3 and K4 also count the
     limbs they transformed in `limbs`. A replayed op program
     (utils/liftgraph.py) adds the launches its graph holds."""
-    from ace_tpu_torch.ops import baseconv, ntt4, pallas_modops as pm
+    from ace_tpu_torch.ops import baseconv, lift, ntt4, pallas_modops as pm
     return {"K1": pm.barrett_mul, "K2": pm.shoup_mul, "K3": ntt4.ntt4_fwd,
-            "K4": ntt4.ntt4_inv, "K5": baseconv.base_conv}
+            "K4": ntt4.ntt4_inv, "K5": baseconv.base_conv,
+            "K6": lift.lift_msgs}
 
 
 def reset_counters() -> None:

@@ -22,7 +22,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-SOURCES = ("modmul", "ntt", "baseconv")
+SOURCES = ("modmul", "ntt", "baseconv", "lift")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "ace_k4_ntt_inv": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "ace_ntt_shape": [_I, _I, _VP],
     "ace_k5_base_conv": [_VP, _VP, _VP, _I, _I, _LL, _VP],
+    "ace_k6_lift_msgs": [_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP],
 }
 
 _libs: dict = {}

@@ -23,7 +23,8 @@ eager path.
      12 -> 34 (digit 0's mod-up) and 12 P -> 34 q (mod-down), against
      its plain int64 ATen chain, timed with its bound and the chain's
      time and launches, and mod_up / mod_down at the top level timed
-     with the chain (before) and with K5 (after).
+     with the chain (before) and with K5 (after); then K6 (the
+     plaintext-message lift) at [12, 22, N] and [8, 46, N] likewise.
   3. exactness of whole ops: one rotate and one mul+rescale of a level-34
      ciphertext under the port's own keys, on the card and on the CPU
      (plain versions); the residues must be identical.
@@ -299,7 +300,7 @@ def phase_kernels(crt) -> list:
         raise AssertionError("K4(K3(x)) != x")
     log("[phase 2] K4(K3(x)) == x")
     ntt_path_shapes(crt, sets)
-    return rows + k5_exact_and_timed(crt)
+    return rows + k5_exact_and_timed(crt) + k6_exact_and_timed(crt)
 
 
 def k5_conversions(crt, level: int = NUM_Q) -> dict:
@@ -444,6 +445,78 @@ def k5_key_switch_timed(crt, rng, level: int = NUM_Q) -> None:
     log("[phase 2] key switch at level " + str(level) + ", before (plain "
         "chain) -> after (K5), ms: " + ", ".join(
             f"{k} {b:.3f} -> {a:.3f}" for k, (b, a) in res.items()))
+
+
+K6_SHAPES = ((12, 22), (8, 46))  # (messages, limbs) at N = DEGREE
+
+
+def k6_exact_and_timed(crt) -> list:
+    """K6 (the plaintext-message lift) at the bundles' shapes [R, LK, N]:
+    a conv bundle's 12 messages at level 10 (22 limbs) and a BSGS level's
+    8 at the top (46), each equal word for word to its plain version
+    (evaluator._lift_msgs_plain, the int64 ATen chain) on the same card
+    tensors, then timed like K5: 20 raw launches cycling over 4 message
+    sets between CUDA events, median of 10; the plain chain per call with
+    its launch count. Returns the K6 row of phase 2's table."""
+    import torch
+    from ace_tpu_torch.ckks.evaluator import _lift_msgs_plain
+    from ace_tpu_torch.ops import kernels, lift
+    rng = np.random.default_rng(SEED + 6)
+    n = crt.degree
+    lib = kernels.lib("lift")
+    row = None
+    for R, LK in K6_SHAPES:
+        idx = list(range(LK - crt.num_p)) + list(
+            range(crt.num_q, crt.num_q + crt.num_p))
+        qk, muh, mulo = crt.mod_arrays(idx)
+        xs = [torch.as_tensor(rng.integers(-(1 << 62), 1 << 62, (R, n)),
+                              device=crt.device) for _ in range(4)]
+        xs[0][0, :4] = torch.tensor([0, -1, -(1 << 63), (1 << 63) - 1])
+        got = lift.lift_msgs(xs[0], qk, muh, mulo)
+        want = _lift_msgs_plain(xs[0], qk, muh, mulo)
+        torch.cuda.synchronize()
+        err = int((got != want).sum().item())
+        if err:
+            raise AssertionError(f"K6 [{R}, {LK}, {n}]: {err} residues "
+                                 f"differ from the plain version")
+        out = torch.empty_like(got)
+        st = kernels.stream_ptr(out)
+
+        def launch(i):
+            kernels.check(lib.ace_k6_lift_msgs(
+                xs[i % 4].data_ptr(), qk.data_ptr(), muh.data_ptr(),
+                mulo.data_ptr(), out.data_ptr(), R, LK, n, st),
+                "K6 lift_msgs")
+        ms = time_ms(launch, reps=10, batch=20)
+        wrap_ms = time_ms(lambda i: lift.lift_msgs(xs[i % 4], qk, muh, mulo),
+                          reps=10)
+        chain = count_cuda_launches(lambda: _lift_msgs_plain(
+            xs[0], qk, muh, mulo))
+        plain_ms = time_ms(lambda i: _lift_msgs_plain(xs[i % 4], qk, muh,
+                                                      mulo), reps=10)
+        nbytes = (R + R * LK) * n * 8
+        imads = R * LK * n * 2 * (MUL_HI + MUL_LO)
+        b_ms, b_by = bound(nbytes, imads)
+        log(f"[phase 2] K6 lift_msgs [{R}, {LK}, {n}]: exact; kernel "
+            f"{ms:.4f} ms (wrapper call {wrap_ms:.4f} ms, plain ATen chain "
+            f"{plain_ms:.4f} ms in {chain} launches); bound {b_ms:.4f} ms "
+            f"by {b_by} ({nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M IMAD) "
+            f"= {100 * b_ms / ms:.0f}% of roofline; grid "
+            f"{' x '.join(map(str, lift.launch_shape(R, LK, n)))} blocks of "
+            f"{lift.THREADS} threads")
+        if row is None:
+            row = {"name": "K6 lift_msgs", "route": "cuda",
+                   "source": "ace_tpu_torch/csrc/lift.cu",
+                   "replaces": "none (ace_tpu's lift is jnp code inside its "
+                               "bundles, ckks/evaluator.py _lift_msgs)",
+                   "launches": 0, "max_abs_err": 0, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None,
+                   "plain_launches": chain}
+        row.setdefault("by_shape", {})[f"[{R}, {LK}, {n}]"] = {
+            "ms": ms, "bound_ms": b_ms, "plain_ms": plain_ms,
+            "plain_launches": chain}
+    return [row]
 
 
 def ntt_shape(L: int, n: int) -> str:
@@ -903,6 +976,11 @@ def phase_resnet20(device=None, graph=None, img=None,
         f"{t_setup:.1f} s; launches {st['launches']}; NTT limbs "
         f"{st['limbs']}")
     log(TIMING.report(st["timing"]))
+    bundles = {k: st["timing"].get(f"CKKS::{k}", [0])[0]
+               for k in ("rot_mac_groups_msgs_jit", "bsgs_iter_jit")}
+    log(f"[phase 6] K6 launches an image {st['launches'].get('K6')} (one a "
+        f"MAC group, replays included; the same in a warm image) over "
+        f"bundle calls {bundles}")
     programs = ctx.evaluator.program_stats()
     log(f"[phase 6] op programs: {programs}")
     # allocated misses the graph pool's segments once the captures end
@@ -2820,7 +2898,9 @@ def main() -> int:
         t0 = time.perf_counter()
         att = phase_attention()
         lap("8")
-        idle = [k for k, v in att["launches"].items() if v == 0]
+        # the block has no MAC bundle (its products are mul_plain), so no
+        # message lift (K6)
+        idle = [k for k, v in att["launches"].items() if v == 0 and k != "K6"]
         if idle:
             raise AssertionError(f"kernels never launched in the attention "
                                  f"block: {idle}")

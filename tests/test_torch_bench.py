@@ -142,4 +142,4 @@ def test_chip_smoke_bench_phase_on_cpu():
                                    "mul_relin", "rescale", "rotate",
                                    "ntt_fwd", "ntt_inv"]
     assert out["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                              "K5": 0}
+                              "K5": 0, "K6": 0}

@@ -265,7 +265,8 @@ def test_chip_smoke_spmd_phase_on_cpu():
         res = chip_smoke.phase_spmd(
             device="cpu", kw=chip_smoke.spmd_kw(1024), sm=sm, want=want)
     assert sorted(res["seconds"]) == ["9a", "9a_single", "9b", "9c"]
-    assert sorted(res["launches_spmd"]) == ["K1", "K2", "K3", "K4", "K5"]
+    assert sorted(res["launches_spmd"]) == [
+        "K1", "K2", "K3", "K4", "K5", "K6"]
     assert not any(res["launches_spmd"].values())
 
 
@@ -281,5 +282,6 @@ def test_chip_smoke_limb_phase_on_cpu():
         res = chip_smoke.phase_limb(
             device="cpu", kw=chip_smoke.spmd_kw(1024), sm=sm, want=want)
     assert sorted(res["seconds"]) == ["9d", "9d_single"]
-    assert sorted(res["launches_limb"]) == ["K1", "K2", "K3", "K4", "K5"]
+    assert sorted(res["launches_limb"]) == [
+        "K1", "K2", "K3", "K4", "K5", "K6"]
     assert not any(res["launches_limb"].values())

@@ -247,7 +247,7 @@ def test_chip_smoke_attention_on_cpu():
     assert (res["rotations"], res["mul_plain"], res["keys"]) == (104, 71, 15)
     assert res["level_in"] == 50 and 0 < res["level_out"] < 50
     assert res["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                               "K5": 0}
+                               "K5": 0, "K6": 0}
     assert res["peak_gib"] is None and res["projection_s"] > 0
 
 

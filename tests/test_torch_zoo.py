@@ -149,7 +149,7 @@ def test_run_model_bit_identical_to_compile_and_infer(monkeypatch):
     st = rows[0]["stats"]
     assert st["bootstraps"] == 2 and st["rotation_keys"] > 0
     assert st["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                              "K5": 0}
+                              "K5": 0, "K6": 0}
     assert st["limbs"] == {"K3": 0, "K4": 0}
     assert st["max_plain"] > st["plain_margin"] > 0
     assert st["timing"]["RTM_BOOTSTRAP"][0] == 2
