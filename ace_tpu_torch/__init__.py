@@ -1,10 +1,14 @@
 """ace_tpu_torch — the CKKS FHE framework of `ace_tpu`, in PyTorch and CUDA.
 
 The same layers as `ace_tpu` (ops -> poly -> ckks -> compiler -> runtime
--> models), written as plain functions on torch tensors. The four Pallas
-kernels of `ace_tpu` are hand-written CUDA kernels for Hopper here
-(`csrc/`, built at first use by `ops/kernels.py`); every other device op
-is plain PyTorch.
+-> models), written as plain functions on torch tensors. Six kernels are
+hand-written CUDA for Hopper (`csrc/`, built at first use by
+`ops/kernels.py`): K1/K2 (`ops/pallas_modops.py`) and K3/K4
+(`ops/ntt4.py`) in place of `ace_tpu`'s four Pallas kernels, K5
+(`ops/baseconv.py`) and K6 (`ops/lift.py`) in place of jnp code. Each
+kernel's module holds the kernel's plain PyTorch version and chooses on
+the tensor's device: the plain version on the CPU, the kernel on a
+card. Every other device op is plain PyTorch.
 
 Residue convention. Polynomials are RNS residue tensors [limbs, N] of
 dtype torch.int64 holding canonical residues in [0, q). Every prime is

@@ -58,7 +58,7 @@ from ace_tpu_torch.ckks.cipher import Ciphertext, Ciphertext3
 from ace_tpu_torch.ckks.encoder import Encoder, Plaintext
 from ace_tpu_torch.ckks.keygen import KeyGenerator, SwitchKey
 from ace_tpu_torch.ckks.params import CkksParams
-from ace_tpu_torch.ops import lift, modops, ntt
+from ace_tpu_torch.ops import lift, modops, ntt, pallas_modops as pm
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
 from ace_tpu_torch.runtime.timing import timed
@@ -797,14 +797,6 @@ class Evaluator:
 
         return self._lift(impl, refs=(2, 3))
 
-    def _lift_msgs(self, msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
-        """int64 messages [R, N] -> canonical residues [R, LK, N] at the
-        moduli qk [LK, 1] (bit-exact encoder._signed_to_rns): kernel K6
-        (ops/lift.py) on the card, the plain version on the CPU."""
-        if msg.is_cuda:
-            return lift.lift_msgs(msg, qk, muh, mulo)
-        return _lift_msgs_plain(msg, qk, muh, mulo)
-
     def _mac_msgs(self, msgs: torch.Tensor, ext0: torch.Tensor,
                   ext1: torch.Tensor, idx: list) -> tuple:
         """(sum_i lift(msgs[i]) * ext0[i], the same for ext1) over the QP
@@ -817,10 +809,10 @@ class Evaluator:
         crt = self.crt
         qk, muh, mulo = crt.mod_arrays(idx)
         r, n = msgs.shape
-        lift = self._lift_msgs(msgs, qk, muh, mulo).reshape(r * len(idx), n)
-        pn = ntt.ntt_fwd(lift, crt.tables_for(idx * r)).view(r, len(idx), n)
-        return (_sum_mod(modops.barrett_mul_d(pn, ext0, qk, muh, mulo), qk),
-                _sum_mod(modops.barrett_mul_d(pn, ext1, qk, muh, mulo), qk))
+        lifted = lift.lift_msgs(msgs, qk, muh, mulo).reshape(r * len(idx), n)
+        pn = ntt.ntt_fwd(lifted, crt.tables_for(idx * r)).view(r, len(idx), n)
+        return (_sum_mod(pm.barrett_mul(pn, ext0, qk, muh, mulo), qk),
+                _sum_mod(pm.barrett_mul(pn, ext1, qk, muh, mulo), qk))
 
     @timed("CKKS::rot_mac_groups_msgs_jit", keyswitch=True)
     def rot_mac_groups_msgs_jit(self, ct: Ciphertext, rots: list,
@@ -860,8 +852,8 @@ class Evaluator:
 
     def _mk_rot_mac_groups_msgs(self, auto_idxs: tuple, level: int):
         """The bundle of rot_mac_groups_msgs_jit: the plaintext lift
-        reproduces encoder.encode bit-exactly (_lift_msgs, then the same
-        NTT tables); ace_tpu's lax.scan over groups is a loop."""
+        reproduces encoder.encode bit-exactly (lift.lift_msgs, then the
+        same NTT tables); ace_tpu's lax.scan over groups is a loop."""
         crt = self.crt
         num_p = crt.num_p
         idx = crt.local(crt.limbs(level, num_p))
@@ -957,16 +949,6 @@ class Evaluator:
             return P.mod_down(out0, crt).data, P.mod_down(out1, crt).data
 
         return self._lift(impl, refs=(2, 3, 4, 5))
-
-
-def _lift_msgs_plain(msg: torch.Tensor, qk, muh, mulo) -> torch.Tensor:
-    """The plain version of K6: int64 messages [..., N] -> canonical
-    residues [..., LK, N] at the moduli qk [LK, 1] as PyTorch int64 ops
-    (mod_u64's Barrett-128 in 32-bit halves), on any device."""
-    neg = msg < 0
-    mag = torch.where(neg, -msg, msg)
-    r = modops.mod_u64(mag[..., None, :], qk, muh, mulo)
-    return torch.where(neg[..., None, :] & (r != 0), qk - r, r)
 
 
 def _sum_mod(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

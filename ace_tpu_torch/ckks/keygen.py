@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ace_tpu_torch.ckks.params import CkksParams
-from ace_tpu_torch.ops import modops, ntt
+from ace_tpu_torch.ops import modops, ntt, pallas_modops as pm
 from ace_tpu_torch.poly import poly as P
 from ace_tpu_torch.poly.poly import RnsPoly
 from ace_tpu_torch.runtime.timing import TIMING
@@ -234,8 +234,8 @@ class KeyGenerator:
             parts * len(idx), n)
         e_ntt = ntt.ntt_fwd(e_rns, crt.tables_for(idx * parts)
                             ).view(parts, len(idx), n)
-        t = modops.barrett_mul_d(a, old_key.data[None], q[None],
-                                 mu_hi[None], mu_lo[None])
+        t = pm.barrett_mul(a, old_key.data[None], q[None], mu_hi[None],
+                           mu_lo[None])
         b = modops.add_mod(modops.sub_mod(e_ntt, t, q[None]),
                            self._scaled_new_key(new_key), q[None])
         return SwitchKey(

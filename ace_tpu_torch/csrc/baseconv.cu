@@ -5,7 +5,7 @@
 //   out[j][c] = (sum_o shoup(x[o][c], hat_inv[o]) * mat[j][o]) mod p_j
 //
 // with the sum exact in 128 bits and a Barrett-128 reduction, so the words
-// equal the plain version's (poly/poly.py _base_conv_plain) wherever the
+// equal the plain version's (ops/baseconv.py base_conv_plain) wherever the
 // sum fits: O * (max q_o - 1) * (max mat) < 2^128, which the wrapper
 // (ops/baseconv.py) checks once per conversion. It replaces no TPU kernel:
 // ace_tpu's base conversion is jnp code. On the card the plain version was

@@ -1,11 +1,11 @@
 // Kernel K6: the plaintext-message lift of the hoisted MAC bundles
-// (ckks/evaluator.py Evaluator._lift_msgs): R signed int64 messages [R, n]
+// (ckks/evaluator.py Evaluator._mac_msgs): R signed int64 messages [R, n]
 // to their canonical residues [R, LK, n] at LK moduli q_l,
 //
 //   out[r][l][c] = msg[r][c] mod q_l, in [0, q_l),
 //
-// word for word what the plain version (ckks/evaluator.py
-// _lift_msgs_plain) and encoder._signed_to_rns give. The magnitude |msg| is taken as an
+// word for word what the plain version (ops/lift.py lift_msgs_plain) and
+// encoder._signed_to_rns give. The magnitude |msg| is taken as an
 // unsigned word (INT64_MIN's is 2^63), reduced by Barrett-128 with a zero
 // high word, quot = hi(v * mu_hi) + carry(lo(v * mu_hi) + hi(v * mu_lo)),
 // r = v - quot * q and two conditional subtractions, as ops/modops.py

@@ -10,12 +10,12 @@ and the bound.
 `constants` packs one conversion's constants into the uint64 vector the
 kernel reads; poly/poly.py caches it on the device per conversion
 (CrtContext.const), so a call copies nothing from the host and an op
-program can capture it. `base_conv` launches K5 on CUDA tensors and
-raises on any other: the plain version, for the CPU, is
-poly/poly.py _base_conv_plain. `launches` counts the launches (one a
-conversion); a target of no rows (a rank's empty share of a
-limb-sharded poly) launches nothing. K5 has no `limbs` counter: that
-counter is the NTT kernels' alone.
+program can capture it. `base_conv` takes the plain version,
+`base_conv_plain`, which reads the same vector, only for tensors on the
+CPU; for CUDA tensors it launches K5 or raises. `launches` counts the
+launches (one a conversion); a target of no rows (a rank's empty share
+of a limb-sharded poly) launches nothing. K5 has no `limbs` counter:
+that counter is the NTT kernels' alone.
 """
 
 from __future__ import annotations
@@ -74,10 +74,38 @@ def constants(old_qs, new_qs, hat_inv, hat_mod_new) -> np.ndarray:
         + mat + new_qs + [m[0] for m in mus] + [m[1] for m in mus])
 
 
+def base_conv_plain(x: torch.Tensor, consts: torch.Tensor, num_new: int
+                    ) -> torch.Tensor:
+    """The plain version of K5 as PyTorch int64 ops, on any device: the
+    Shoup pre-multiply by hat_inv, the 128-bit product-sum over the O
+    source rows in 32-bit halves, then Barrett-128, reading the packed
+    `constants` at the kernel's offsets."""
+    old = x.shape[0]
+    c = consts.reshape(-1)
+    q, inv, inv_prec = (c[k * old:(k + 1) * old, None] for k in range(3))
+    mat = c[3 * old:(3 + num_new) * old].view(num_new, old)
+    p, mu_hi, mu_lo = (c[(3 + num_new) * old + k * num_new:
+                         (3 + num_new) * old + (k + 1) * num_new, None]
+                       for k in range(3))
+    tmp = modops.shoup_mul(x, inv, inv_prec, q)  # [O, n]
+    acc_hi = torch.zeros((num_new, x.shape[-1]), dtype=torch.int64,
+                         device=x.device)
+    acc_lo = torch.zeros_like(acc_hi)
+    for o in range(old):
+        p_hi, p_lo = modops.mul_128(tmp[o][None, :], mat[:, o:o + 1])
+        new_lo = acc_lo + p_lo
+        carry = modops._ult(new_lo, p_lo).to(torch.int64)
+        acc_hi = acc_hi + p_hi + carry
+        acc_lo = new_lo
+    return modops.barrett_reduce_128(acc_hi, acc_lo, p, mu_hi, mu_lo)
+
+
 def base_conv(x: torch.Tensor, consts: torch.Tensor, num_new: int
               ) -> torch.Tensor:
     """K5: [O, n] residues to [num_new, n] canonical residues, with the
     conversion's packed `constants` on the same card."""
+    if not x.is_cuda:
+        return base_conv_plain(x, consts, num_new)
     for t in (x, consts):
         if not t.is_cuda or t.dtype != torch.int64:
             raise TypeError(f"K5 takes int64 CUDA tensors, got {t.dtype} on "

@@ -13,9 +13,9 @@ patterns: high products go through 32-bit halves, and their carries
 through `_ult`, an unsigned compare. int64 products wrap modulo 2^64,
 which is exactly the unsigned low word.
 
-`barrett_mul_d` and `shoup_mul_d` are the dispatching entry points of
-the hot elementwise products: CUDA tensors go to kernels K1 and K2
-(ops/pallas_modops.py), CPU tensors to the plain versions below.
+`barrett_mul` and `shoup_mul` are the plain versions of kernels K1 and
+K2; callers take them through ops/pallas_modops.py, which launches the
+kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -102,22 +102,6 @@ def barrett_mul(a, b, q, mu_hi, mu_lo):
 def mod_u64(a, q, mu_hi, mu_lo):
     """a mod q for a full-range unsigned 64-bit a (Barrett, v_hi = 0)."""
     return barrett_reduce_128(torch.zeros_like(a), a, q, mu_hi, mu_lo)
-
-
-# ---------------------------------------------------------------------------
-# Dispatched products: kernel K1/K2 on CUDA tensors, plain on the CPU
-# ---------------------------------------------------------------------------
-
-def barrett_mul_d(a, b, q, mu_hi, mu_lo):
-    """barrett_mul through kernel K1 for CUDA tensors."""
-    from ace_tpu_torch.ops import pallas_modops as pm
-    return pm.barrett_mul(a, b, q, mu_hi, mu_lo)
-
-
-def shoup_mul_d(x, w, w_prec, q):
-    """shoup_mul through kernel K2 for CUDA tensors."""
-    from ace_tpu_torch.ops import pallas_modops as pm
-    return pm.shoup_mul(x, w, w_prec, q)
 
 
 # ---------------------------------------------------------------------------

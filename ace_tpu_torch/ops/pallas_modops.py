@@ -38,21 +38,11 @@ def _per_row(c: torch.Tensor, lead: tuple) -> torch.Tensor:
     return c.expand(*lead, 1).reshape(-1).contiguous()
 
 
-def barrett_mul_plain(a, b, q, mu_hi, mu_lo):
-    """The plain version of K1."""
-    return modops.barrett_mul(a, b, q, mu_hi, mu_lo)
-
-
-def shoup_mul_plain(x, w, w_prec, q):
-    """The plain version of K2."""
-    return modops.shoup_mul(x, w, w_prec, q)
-
-
 def barrett_mul(a, b, q, mu_hi, mu_lo):
     """(a*b) mod q elementwise over [..., N]. b is [..., N] or a per-row
     constant [..., 1]; q, mu_hi, mu_lo are per-row [..., 1]."""
     if not a.is_cuda:
-        return barrett_mul_plain(a, b, q, mu_hi, mu_lo)
+        return modops.barrett_mul(a, b, q, mu_hi, mu_lo)
     _check_cuda(a, b, q, mu_hi, mu_lo)
     lead = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
     n = a.shape[-1]
@@ -78,7 +68,7 @@ def barrett_mul(a, b, q, mu_hi, mu_lo):
 def shoup_mul(x, w, w_prec, q):
     """x*w mod q elementwise over [..., N] with per-row w, w_prec, q."""
     if not x.is_cuda:
-        return shoup_mul_plain(x, w, w_prec, q)
+        return modops.shoup_mul(x, w, w_prec, q)
     _check_cuda(x, w, w_prec, q)
     lead = tuple(x.shape[:-1])
     logn = _log2(x.shape[-1])

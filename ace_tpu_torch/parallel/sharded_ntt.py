@@ -12,10 +12,10 @@ ops/ntt.py:
         transpose -> NegaCT_C (local) -> all_to_all transpose back
 
 The ladders' twiddle products are per-row constants over [rows, C/s]
-and go through kernel K2 (modops.shoup_mul_d) on the card; the column
-tables (psi^b, T2 and their inverses) multiply elementwise in plain
-PyTorch, as they are jnp code in ace_tpu. Every product is canonical,
-so the residues are the same either way.
+and go through kernel K2 (pallas_modops.shoup_mul) on the card; the
+column tables (psi^b, T2 and their inverses) multiply elementwise in
+plain PyTorch, as they are jnp code in ace_tpu. Every product is
+canonical, so the residues are the same either way.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ace_tpu_torch.ops import modops
+from ace_tpu_torch.ops import modops, pallas_modops as pm
 from ace_tpu_torch.ops.ntt import _bit_reverse_indices, pow_table, \
     shoup_table
 from ace_tpu_torch.utils import number_theory as nt
@@ -139,7 +139,7 @@ def _negact_local(x, w, w_prec, q):
         om = w[:, s, ::2 * half].reshape(L, m, 1, 1)
         omp = w_prec[:, s, ::2 * half].reshape(L, m, 1, 1)
         xv = d[:, :, 0]
-        wy = modops.shoup_mul_d(d[:, :, 1], om, omp, q4)
+        wy = pm.shoup_mul(d[:, :, 1], om, omp, q4)
         d = torch.stack([modops.add_mod(xv, wy, q4),
                          modops.sub_mod(xv, wy, q4)], dim=2)
     return d.reshape(L, R, Cl)
@@ -159,7 +159,7 @@ def _negact_inv_local(x, wi, wi_prec, q):
         om = wi[:, s, ::2 * half].reshape(L, m, 1, 1)
         omp = wi_prec[:, s, ::2 * half].reshape(L, m, 1, 1)
         xv, yv = d[:, :, 0], d[:, :, 1]
-        ny = modops.shoup_mul_d(modops.sub_mod(xv, yv, q4), om, omp, q4)
+        ny = pm.shoup_mul(modops.sub_mod(xv, yv, q4), om, omp, q4)
         d = torch.stack([modops.add_mod(xv, yv, q4), ny], dim=2)
     return d.reshape(L, R, Cl)
 

@@ -24,9 +24,10 @@ ace_tpu's return global arrays: the automorphism follows one all_gather
 over 'slot' of the two outputs.
 
 Kernels: the digit MAC's two products go through K1
-(modops.barrett_mul_d), the ladders' twiddle products and mod-down's
-P^-1 product through K2 (modops.shoup_mul_d); base conversion through
-K5 (poly._base_conv_data), on the column shard's [rows, R * C/s] rows.
+(pallas_modops.barrett_mul), the ladders' twiddle products and
+mod-down's P^-1 product through K2 (pallas_modops.shoup_mul); base
+conversion through K5 (poly._base_conv_data), on the column shard's
+[rows, R * C/s] rows.
 
 Residues are int64. The digit sum wraps modulo 2^64 and its D terms
 are canonical, so it is exact while D * max(q) < 2^64; the D - 1
@@ -59,7 +60,7 @@ import numpy as np
 import torch
 
 from ace_tpu_torch.ckks.cipher import Ciphertext
-from ace_tpu_torch.ops import modops
+from ace_tpu_torch.ops import modops, pallas_modops as pm
 from ace_tpu_torch.parallel import sharded_ntt as SN
 from ace_tpu_torch.poly.poly import RnsPoly, _base_conv_data
 from ace_tpu_torch.utils.liftgraph import GraphPool, lift_graph
@@ -233,8 +234,7 @@ class SpmdKeySwitch:
             crt.p_hat_mod_q[:level], crt).reshape(level, R, cl)
         conv = SN.ntt_fwd_local(conv, t.rows(slice(0, level)), mesh)
         diff = modops.sub_mod(e[:level], conv, self.q3)
-        return modops.shoup_mul_d(diff, self.p_inv, self.p_inv_prec,
-                                  self.q3)
+        return pm.shoup_mul(diff, self.p_inv, self.p_inv_prec, self.q3)
 
     def _switch(self, c0, c1, tgt, kb, ka, rotate: bool):
         """One hybrid key switch of `tgt` ([level, N], NTT form) against
@@ -254,10 +254,8 @@ class SpmdKeySwitch:
         ext = SN.ntt_fwd_local(ext, t, mesh)
         # digit MAC against this rank's key digit, then ONE digit sum
         e = mesh.all_reduce_digit(torch.stack([
-            modops.barrett_mul_d(ext, kb, self.qp3, self.mu_hi3,
-                                 self.mu_lo3),
-            modops.barrett_mul_d(ext, ka, self.qp3, self.mu_hi3,
-                                 self.mu_lo3)]))
+            pm.barrett_mul(ext, kb, self.qp3, self.mu_hi3, self.mu_lo3),
+            pm.barrett_mul(ext, ka, self.qp3, self.mu_hi3, self.mu_lo3)]))
         e = reduce_digit_sum(e, self.qp3, self.num_digits)
         s0, s1 = self._mod_down(e[0]), self._mod_down(e[1])
         t0 = modops.add_mod(s0, self._local(c0), self.q3)

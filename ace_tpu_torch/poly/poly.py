@@ -18,9 +18,11 @@ Exact-semantics sources:
                       the dropped limb + per-limb correction)
 
 Kernels: `mul` and mod-down's P^-1 product go through K1
-(modops.barrett_mul_d), `mul_scalars` and rescale's q_l^-1 product
-through K2 (modops.shoup_mul_d), every NTT through K3/K4, every base
-conversion (mod-up's, mod-down's) through K5 (ops/baseconv.py).
+(pallas_modops.barrett_mul), `mul_scalars` and rescale's q_l^-1
+product through K2 (pallas_modops.shoup_mul), every NTT through K3/K4,
+every base conversion (mod-up's, mod-down's) through K5
+(ops/baseconv.py). Each kernel's module runs its plain version on CPU
+tensors.
 
 Limb shard (CrtContext.shard): a poly's data holds this rank's rows
 only. Elementwise ops, `mul_scalars`, the NTTs and `automorphism` run on
@@ -39,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ace_tpu_torch.ops import baseconv, modops, ntt
+from ace_tpu_torch.ops import baseconv, modops, ntt, pallas_modops as pm
 from ace_tpu_torch.poly.rns import CrtContext
 
 
@@ -89,7 +91,7 @@ def mul(a: RnsPoly, b: RnsPoly, ctx: CrtContext) -> RnsPoly:
     assert a.is_ntt and b.is_ntt
     assert a.num_q == b.num_q and a.num_p == b.num_p
     q, mu_hi, mu_lo = _mods(a, ctx)
-    return RnsPoly(modops.barrett_mul_d(a.data, b.data, q, mu_hi, mu_lo),
+    return RnsPoly(pm.barrett_mul(a.data, b.data, q, mu_hi, mu_lo),
                    a.num_q, a.num_p, a.is_ntt)
 
 
@@ -114,7 +116,7 @@ def mul_scalars(a: RnsPoly, scalars: list[int], ctx: CrtContext) -> RnsPoly:
     qs = [ctx.all_primes[i] for i in idx]
     w, w_prec = _shoup_cols(ctx, scalars, qs)
     q, _, _ = _mods(a, ctx)
-    return RnsPoly(modops.shoup_mul_d(a.data, w, w_prec, q),
+    return RnsPoly(pm.shoup_mul(a.data, w, w_prec, q),
                    a.num_q, a.num_p, a.is_ntt)
 
 
@@ -179,49 +181,19 @@ def _coeff_auto_maps(auto_idx: int, n: int, ctx: CrtContext) -> tuple:
 
 def _base_conv_data(old_data, old_qs: list[int], new_qs: list[int],
                     hat_inv: list[int], hat_mod_new, ctx: CrtContext):
-    """Core of Fast_base_conv (polynomial.c:755-808), coefficient form:
-    kernel K5 on the card, the plain version on the CPU.
+    """Core of Fast_base_conv (polynomial.c:755-808), coefficient form,
+    through K5 (ops/baseconv.py) with the conversion's packed constants
+    cached on the device.
 
     old_data: [O, N]; hat_inv[o] = (M/q_o)^-1 mod q_o;
     hat_mod_new[n][o] = (M/q_o) mod p_n.
     Returns [len(new_qs), N] canonical residues.
     """
-    if not old_data.is_cuda:
-        return _base_conv_plain(old_data, old_qs, new_qs, hat_inv,
-                                hat_mod_new, ctx)
-    # the matrix follows from the two bases and hat_inv, as for "hatmat"
+    # the matrix follows from the two bases and hat_inv
     key = ("k5", tuple(old_qs), tuple(new_qs), tuple(hat_inv))
     consts = ctx.const(key, lambda: baseconv.constants(
         old_qs, new_qs, hat_inv, hat_mod_new))
     return baseconv.base_conv(old_data, consts, len(new_qs))
-
-
-def _base_conv_plain(old_data, old_qs: list[int], new_qs: list[int],
-                     hat_inv: list[int], hat_mod_new, ctx: CrtContext):
-    """The plain version of K5: _base_conv_data's arithmetic as PyTorch
-    int64 ops (a Shoup pre-multiply, a 128-bit product-sum over the
-    source rows in 32-bit halves, Barrett-128), on any device."""
-    O = len(old_qs)
-    old_q = ctx.column(old_qs)
-    inv, inv_prec = _shoup_cols(ctx, hat_inv, old_qs)
-    tmp = modops.shoup_mul(old_data, inv, inv_prec, old_q)  # [O, N]
-
-    key = ("hatmat", tuple(old_qs), tuple(new_qs), tuple(hat_inv))
-    mat = ctx.const(key, lambda: modops.np_u64(hat_mod_new).reshape(
-        len(new_qs), O))  # [new, O]
-    acc_hi = torch.zeros((len(new_qs), old_data.shape[-1]), dtype=torch.int64,
-                         device=old_data.device)
-    acc_lo = torch.zeros_like(acc_hi)
-    for o in range(O):
-        p_hi, p_lo = modops.mul_128(tmp[o][None, :], mat[:, o:o + 1])
-        new_lo = acc_lo + p_lo
-        carry = modops._ult(new_lo, p_lo).to(torch.int64)
-        acc_hi = acc_hi + p_hi + carry
-        acc_lo = new_lo
-    mus = [modops.precompute_barrett128(q) for q in new_qs]
-    return modops.barrett_reduce_128(
-        acc_hi, acc_lo, ctx.column(new_qs), ctx.column([m[0] for m in mus]),
-        ctx.column([m[1] for m in mus]))
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +272,7 @@ def mod_down(a: RnsPoly, ctx: CrtContext) -> RnsPoly:
     q, mu_hi, mu_lo = ctx.mod_arrays(q_idx)
     diff = modops.sub_mod(a.data[:kq], conv, q)
     p_inv = ctx.column([ctx.p_inv_mod_q[g] for g in q_idx])
-    out = modops.barrett_mul_d(diff, p_inv, q, mu_hi, mu_lo)
+    out = pm.barrett_mul(diff, p_inv, q, mu_hi, mu_lo)
     return RnsPoly(out, level, 0, a.is_ntt)
 
 
@@ -369,5 +341,5 @@ def rescale(a: RnsPoly, ctx: CrtContext) -> RnsPoly:
 
     inv_w, inv_prec = _shoup_cols(
         ctx, [ctx.ql_inv_mod_qi[k][g] for g in rem_idx], rem_qs)
-    scaled = modops.shoup_mul_d(a.data[:rem], inv_w, inv_prec, new_q)
+    scaled = pm.shoup_mul(a.data[:rem], inv_w, inv_prec, new_q)
     return RnsPoly(modops.add_mod(scaled, corr, new_q), level - 1, 0, True)

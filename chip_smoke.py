@@ -12,19 +12,18 @@ the meshes' collectives; phases 9, 9d and 11 hold them against the
 eager path.
   1. device and build: the card's name and power limit; the CUDA kernels
      compiled from ace_tpu_torch/csrc (one nvcc per source, in parallel).
-  2. kernels: K1 (Barrett product), K2 (Shoup product), K3 (forward NTT)
-     and K4 (inverse NTT) at ResNet-20's shapes — N = 2^15 over its whole
-     prime chain (34 q primes and the P primes) — each equal, word for
-     word, to its plain PyTorch version on the same inputs, plus the
-     K3-K4 round trip; then each kernel's time (CUDA events, see
-     phase_kernels), its plain version's time, launch shape and bound;
-     then K3 and K4 likewise at the slice's own limb counts 1, 12, 34;
-     then K5 (fast base conversion) at the key switch's two shapes,
-     12 -> 34 (digit 0's mod-up) and 12 P -> 34 q (mod-down), against
-     its plain int64 ATen chain, timed with its bound and the chain's
-     time and launches, and mod_up / mod_down at the top level timed
-     with the chain (before) and with K5 (after); then K6 (the
-     plaintext-message lift) at [12, 22, N] and [8, 46, N] likewise.
+  2. kernels, each through kernel_row (see there), its one helper: the
+     kernel's wrapper equal, word for word, to its plain PyTorch version
+     on the same inputs, then the kernel timed alone (a CUDA graph of
+     back-to-back wrapper calls), its plain version's time and launches,
+     launch shape and bound. At ResNet-20's shapes: K1 (Barrett
+     product), K2 (Shoup product), K3 (forward NTT) and K4 (inverse NTT)
+     at N = 2^15 over its whole prime chain (34 q primes and the P
+     primes), plus the K3-K4 round trip; K3 and K4 at the slice's own
+     limb counts 1, 12, 34; K5 (fast base conversion) at the key
+     switch's two shapes, 12 -> 34 (digit 0's mod-up) and 12 P -> 34 q
+     (mod-down); K6 (the plaintext-message lift) at [12, 22, N] and
+     [8, 46, N].
   3. exactness of whole ops: one rotate and one mul+rescale of a level-34
      ciphertext under the port's own keys, on the card and on the CPU
      (plain versions); the residues must be identical.
@@ -52,8 +51,9 @@ eager path.
      must raise, and a checkpointed ops[:6] resumed bit-exact.
   8. one encrypted LLaMA attention block at full head width (see
      phase_attention): d = 128 (models/llama.py's 4096 over 32 heads),
-     seq = 128, N = 2^15 with 50 q primes; K1-K4 and one rotate and one
-     mul+rescale first checked at this chain's limb counts; then
+     seq = 128, N = 2^15 with 50 q primes; K1-K4 first checked and
+     timed (kernel_row) and one rotate and one mul+rescale checked at
+     this chain's limb counts; then
      encrypted_attention cold (keys made on demand) against
      attention_plain within 2e-2, stage by stage, and one projection
      under the profiler. The kernel rows' `launches_llama` count the
@@ -80,15 +80,14 @@ eager path.
  10. the benchmark entry points at N = 2^16 (bench_torch.py,
      bench_micro_torch.py and the native C library of ops/native.py, see
      phase_bench): the C library's build and the one-thread CPU NTT
-     baseline; K3 and K4 at bench_torch's [8, 65536] and over
-     bench_micro_torch's whole chain [32, 65536] (24 q + 8 P primes),
-     each equal word for word to its plain version, timed, and K1-K4
-     likewise at [32, 65536] and [24, 65536], K1 and K2 timed there
-     (the rows' `ms_2e16`, `bound_ms_2e16`); bench_torch's
-     chained NTT passes (NTT/s, vs_baseline); bench_micro_torch's context
-     and ops, one rotate and one mul+relin+rescale decoded within 1e-4;
-     the full bootstrap (2^15 slots) cold and warm and a 2^12-slot sparse
-     one, decoded within 2e-2. The kernel rows' `launches_2e16` count
+     baseline; through kernel_row, K3 and K4 at bench_torch's
+     [8, 65536] and K1-K4 over bench_micro_torch's whole chain
+     [32, 65536] (24 q + 8 P primes) and its q primes [24, 65536] (the
+     rows' `by_shape`); bench_torch's chained NTT passes (NTT/s,
+     vs_baseline); bench_micro_torch's context and ops, one rotate and
+     one mul+relin+rescale decoded within 1e-4; the full bootstrap
+     (2^15 slots) cold and warm and a 2^12-slot sparse one, decoded
+     within 2e-2. The kernel rows' `launches_2e16` count
      its bench pass, ops and bootstraps.
  11. (run after 5) the op programs (see phase_programs) on phase 5's
      context: each program kind (rot with a conjugate, mulrl, rs, mp,
@@ -102,7 +101,8 @@ eager path.
      launches through programs there.
 
 The last lines are the card's `name, power.limit`, one JSON object with a
-row per kernel, and {"ok": true, "device": {...}}.
+row per kernel (kernel_table: each kernel_row of phases 2, 8 and 10 under
+`by_shape`), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -193,124 +193,194 @@ def phase_device_and_build() -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(crt) -> list:
-    """Each kernel against its plain version on the same card tensors,
-    then timed. `ms` is the kernel alone: 20 back-to-back launches through
-    the C launcher between two CUDA events, cycling over 4 input sets
-    (4 x 24-36 MB, beyond the 50 MB L2, so each launch reads cold data),
-    median of 10 such samples. The wrapper's time per single call (with
-    its argument checks and Python overhead) and the plain version's
-    are printed beside it."""
-    import torch
-    from ace_tpu_torch.ops import (kernels, modops, ntt, ntt4,
-                                   pallas_modops as pm)
-    dev = crt.device
-    primes = crt.all_primes
-    L, n = len(primes), crt.degree
-    logn = n.bit_length() - 1
+    """Every kernel at ResNet-20's shapes through kernel_row: K1-K4 over
+    the whole chain [46, N] (4 input sets of 24-36 MB, beyond the 50 MB
+    L2, so each launch reads cold data) with the K3-K4 round trip; K3
+    and K4 at the slice's own limb counts (rescale's last q limb, the P
+    limbs of mod-down, the q chain); K5 at the key switch's two
+    conversions (4 sets of 12 MB stay in L2, as K4's fresh output does
+    for the K5 launch after it); K6 at the bundles' [R, LK, N]."""
     rng = np.random.default_rng(SEED)
+    rows = chain_rows(crt, range(len(crt.all_primes)), "the whole chain",
+                      "[phase 2]", rng)
+    for what, limbs in (("rescale's last q limb", [NUM_Q - 1]),
+                        ("the P limbs", list(range(NUM_Q, crt.num_q
+                                                   + crt.num_p))),
+                        ("the q chain", list(range(NUM_Q)))):
+        rows += ntt_rows(crt.tables_for(limbs), residue_sets(
+            [crt.all_primes[r] for r in limbs], crt.degree, crt.device, rng),
+            what, "[phase 2]")
+    return rows + k5_rows(crt) + k6_rows(crt)
 
-    def residues():
-        return modops.to_torch(np.stack([
-            rng.integers(0, q, n, dtype=np.uint64) for q in primes]), dev)
 
-    sets = [(residues(), residues()) for _ in range(4)]
-    a, b = sets[0]
-    out = torch.empty_like(a)
-    q, mu_hi, mu_lo = crt.mod_arrays(range(L))
+def residue_sets(primes, n: int, device, rng, k: int = 4) -> list:
+    """k tensors [len(primes), n] of uniform residues mod primes."""
+    from ace_tpu_torch.ops import modops
+    return [modops.to_torch(np.stack([rng.integers(0, q, n, dtype=np.uint64)
+                                      for q in primes]), device)
+            for _ in range(k)]
+
+
+# What each kernel is, for the JSON rows, and the least work of one call
+# of it at its shape, for bound(): bytes of each input and output once
+# (K3/K4 also read a twiddle and its Shoup word a coefficient) and 32-bit
+# IMADs. K1-K4 take dims (L, n), K5 (O, J, n), K6 (R, LK, n).
+KERNELS = {
+    "K1": ("barrett_mul", "ace_tpu_torch/csrc/modmul.cu",
+           "ace_tpu/ops/pallas_modops.py:246",
+           lambda L, n: (3 * L * n * 8, BARRETT_IMAD * L * n)),
+    "K2": ("shoup_mul", "ace_tpu_torch/csrc/modmul.cu",
+           "ace_tpu/ops/pallas_modops.py:229",
+           lambda L, n: (2 * L * n * 8, SHOUP_IMAD * L * n)),
+    "K3": ("ntt4_fwd", "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:510",
+           lambda L, n: (4 * L * n * 8, SHOUP_IMAD * L * (n // 2)
+                         * (n.bit_length() - 1))),
+    "K4": ("ntt4_inv", "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:515",
+           lambda L, n: (4 * L * n * 8, SHOUP_IMAD * L * (n // 2)
+                         * (n.bit_length() + 1))),
+    "K5": ("base_conv", "ace_tpu_torch/csrc/baseconv.cu",
+           "none (ace_tpu's base conversion is jnp code, poly/poly.py "
+           "_base_conv_data)",
+           lambda O, J, n: ((O + J) * n * 8, n * (
+               O * J * (MUL_HI + MUL_LO) + O * SHOUP_IMAD
+               + J * (BARRETT_IMAD - MUL_HI - MUL_LO)))),
+    "K6": ("lift_msgs", "ace_tpu_torch/csrc/lift.cu",
+           "none (ace_tpu's lift is jnp code inside its bundles, "
+           "ckks/evaluator.py _mac_msgs)",
+           lambda R, LK, n: ((R + R * LK) * n * 8,
+                             R * LK * n * 2 * (MUL_HI + MUL_LO))),
+}
+GRAPH_CALLS = 20  # wrapper calls captured into one graph by kernel_row
+
+
+def launch_text(key: str, dims: tuple) -> str:
+    """The launch shape of one call of kernel `key` at `dims`."""
+    from ace_tpu_torch.ops import baseconv, lift
+    if key in ("K1", "K2"):
+        L, n = dims
+        return (f"grid {min((L * n + 255) // 256, 132 * 64)} x 256 "
+                f"threads, grid-stride")
+    if key in ("K3", "K4"):
+        return ntt_shape(*dims)
+    if key == "K5":
+        J, n = dims[1:]
+        r = baseconv.slice_rows(J)
+        return (f"grid {-(-n // 128)} x {-(-J // r)} blocks of 128 "
+                f"threads, {r} target rows a block")
+    return (f"grid {' x '.join(map(str, lift.launch_shape(*dims)))} blocks "
+            f"of {lift.THREADS} threads")
+
+
+def kernel_row(key: str, wrapper, plain, arg_sets: list, dims: tuple,
+               what: str, tag: str) -> dict:
+    """Kernel `key` through its wrapper against its plain version.
+    Everywhere: wrapper(*arg_sets[0]) must equal plain(*arg_sets[0]) word
+    for word. On the card also: `ms`, the kernel alone, from GRAPH_CALLS
+    back-to-back wrapper calls cycling over the argument sets captured
+    into one CUDA graph (the check's call before it loaded the library
+    and set the kernel's attributes; the counters are set back after the
+    capture), replayed between CUDA events, median of 10; `plain_ms`, one
+    plain call, median of 10; `plain_launches`, the CUDA kernels one
+    plain call launches; the bound from KERNELS' work at `dims`. Hand
+    it contiguous, 16-byte-aligned inputs, so that the wrappers copy
+    nothing into the graph."""
+    import torch
+    from ace_tpu_torch import ops
+    got, want = wrapper(*arg_sets[0]), plain(*arg_sets[0])
+    shape = f"[{', '.join(map(str, dims))}]"
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag} {key} at {shape} ({what}) differs from "
+                             f"the plain version")
+    row = {"kernel": key, "phase": tag, "shape": shape, "what": what}
+    if not got.is_cuda:
+        log(f"{tag} {key} at {shape} ({what}): equal to its plain version")
+        return row
+    counters = ops.counter_state()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_CALLS):
+            wrapper(*arg_sets[i % len(arg_sets)])
+    ops.restore_counters(counters)
+    ms = time_ms(lambda i: graph.replay()) / GRAPH_CALLS
+    del graph
+    plain_ms = time_ms(lambda i: plain(*arg_sets[i % len(arg_sets)]))
+    chain = count_cuda_launches(lambda: plain(*arg_sets[0]))
+    nbytes, imads = KERNELS[key][3](*dims)
+    b_ms, b_by = bound(nbytes, imads)
+    log(f"{tag} {key} {KERNELS[key][0]} at {shape} ({what}): exact; kernel "
+        f"{ms:.4f} ms (graph of {GRAPH_CALLS}), plain {plain_ms:.4f} ms in "
+        f"{chain} launches; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f}"
+        f" MB, {imads / 1e6:.1f} M IMAD) = {100 * b_ms / ms:.0f}% of "
+        f"roofline; {launch_text(key, dims)}")
+    row.update(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+               plain_launches=chain)
+    return row
+
+
+def kernel_table(rows: list, launches: dict) -> list:
+    """The JSON line's row per kernel: what it is, its launches in each
+    phase (`launches`: {column: {kernel: count}}) and its kernel_rows'
+    figures by phase and shape."""
+    table = {}
+    for r in rows:
+        k = r["kernel"]
+        name, src, repl, _ = KERNELS[k]
+        t = table.setdefault(k, {
+            "name": f"{k} {name}", "source": src, "replaces": repl,
+            **{c: v[k] for c, v in launches.items()}, "by_shape": {}})
+        t["by_shape"][f"{r['phase']} {r['shape']} {r['what']}"] = {
+            f: v for f, v in r.items()
+            if f not in ("kernel", "phase", "shape", "what")}
+    return list(table.values())
+
+
+def ntt_rows(t, xs, what: str, tag: str) -> list:
+    """K3 and K4 on tables t over the input sets xs (each [L, n]) through
+    kernel_row, and K4(K3(x)) == x."""
+    import torch
+    from ace_tpu_torch.ops import ntt, ntt4
+    rows = [kernel_row(k, f, p, [(x, t) for x in xs], tuple(xs[0].shape),
+                       what, tag)
+            for k, f, p in (("K3", ntt4.ntt4_fwd, ntt.ntt_fwd_plain),
+                            ("K4", ntt4.ntt4_inv, ntt.ntt_inv_plain))]
+    if not torch.equal(ntt4.ntt4_inv(ntt4.ntt4_fwd(xs[0], t), t), xs[0]):
+        raise AssertionError(f"{tag} K4(K3(x)) != x at "
+                             f"{list(xs[0].shape)} ({what})")
+    return rows
+
+
+def chain_rows(crt, limbs, what: str, tag: str, rng) -> list:
+    """K1-K4 over the limbs `limbs` of crt through kernel_row, on 4 input
+    sets of uniform residues (K2 by per-limb constants)."""
+    from ace_tpu_torch.ops import modops, pallas_modops as pm
+    limbs = list(limbs)
+    primes = [crt.all_primes[r] for r in limbs]
+    dims = (len(limbs), crt.degree)
+    xs = residue_sets(primes, crt.degree, crt.device, rng)
+    ys = residue_sets(primes, crt.degree, crt.device, rng)
+    q, mu_hi, mu_lo = crt.mod_arrays(limbs)
     ws = [int(rng.integers(1, p)) for p in primes]
     w = crt.column(ws)
     wp = crt.column([modops.precompute_shoup(v, p)
                      for v, p in zip(ws, primes)])
-    t = crt.tables_for(range(L))
-    log(f"[phase 2] shapes [{L}, {n}] int64 (uint64 residues), "
-        f"{L} primes of {min(p.bit_length() for p in primes)}-"
-        f"{max(p.bit_length() for p in primes)} bits")
-
-    mm, nt_ = kernels.lib("modmul"), kernels.lib("ntt")
-    st = kernels.stream_ptr(a)
-    ptr = [(x.data_ptr(), y.data_ptr()) for x, y in sets]
-    qp, mhp, mlp = q.data_ptr(), mu_hi.data_ptr(), mu_lo.data_ptr()
-    tp = {k: getattr(t, k).data_ptr() for k in (
-        "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
-        "n_inv_prec", "rows")}
-    op = out.data_ptr()
-    raw = {
-        "K1": lambda i: mm.ace_k1_barrett_mul(
-            *ptr[i % 4], qp, mhp, mlp, op, L, logn, 0, st),
-        "K2": lambda i: mm.ace_k2_shoup_mul(
-            ptr[i % 4][0], w.data_ptr(), wp.data_ptr(), qp, op, L, logn, st),
-        "K3": lambda i: nt_.ace_k3_ntt_fwd(
-            ptr[i % 4][0], op, tp["rou"], tp["rou_prec"], tp["q"],
-            tp["rows"], L, logn, st),
-        "K4": lambda i: nt_.ace_k4_ntt_inv(
-            ptr[i % 4][0], op, tp["rou_inv"], tp["rou_inv_prec"], tp["q"],
-            tp["n_inv"], tp["n_inv_prec"], tp["rows"], L, logn, st),
-    }
-    grid = min((L * n + 255) // 256, 132 * 64)
-    ntt_launch = ntt_shape(L, n)
-    cases = [
-        ("K1", "barrett_mul", lambda: pm.barrett_mul(a, b, q, mu_hi, mu_lo),
-         lambda: pm.barrett_mul_plain(a, b, q, mu_hi, mu_lo),
-         "ace_tpu_torch/csrc/modmul.cu",
-         "ace_tpu/ops/pallas_modops.py:246",
-         3 * L * n * 8, BARRETT_IMAD * L * n,
-         f"grid {grid} x 256 threads, grid-stride"),
-        ("K2", "shoup_mul", lambda: pm.shoup_mul(a, w, wp, q),
-         lambda: pm.shoup_mul_plain(a, w, wp, q),
-         "ace_tpu_torch/csrc/modmul.cu",
-         "ace_tpu/ops/pallas_modops.py:229",
-         2 * L * n * 8, SHOUP_IMAD * L * n,
-         f"grid {grid} x 256 threads, grid-stride"),
-        ("K3", "ntt4_fwd", lambda: ntt4.ntt4_fwd(a, t),
-         lambda: ntt.ntt_fwd_plain(a, t),
-         "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:510",
-         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * logn, ntt_launch),
-        ("K4", "ntt4_inv", lambda: ntt4.ntt4_inv(a, t),
-         lambda: ntt.ntt_inv_plain(a, t),
-         "ace_tpu_torch/csrc/ntt.cu", "ace_tpu/ops/ntt4.py:515",
-         4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * (logn + 2), ntt_launch),
-    ]
-    rows = []
-    for key, name, kern, plain, src, repl, nbytes, imads, shape in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = int((got != want).sum().item())
-        if err:
-            raise AssertionError(f"{key} {name}: {err} residues differ "
-                                 f"from the plain version")
-
-        def launch(i, f=raw[key], what=f"{key} {name}"):
-            kernels.check(f(i), what)
-        ms = time_ms(launch, reps=10, batch=20)
-        wrap_ms = time_ms(lambda i: kern(), reps=10)
-        plain_ms = time_ms(lambda i: plain(), reps=10)
-        b_ms, b_by = bound(nbytes, imads)
-        log(f"[phase 2] {key} {name}: exact; kernel {ms:.4f} ms "
-            f"(wrapper call {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms); "
-            f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
-            f"{imads / 1e6:.1f} M IMAD) = {100 * b_ms / ms:.0f}% of "
-            f"roofline; {shape}")
-        rows.append({"name": f"{key} {name}", "route": "cuda",
-                     "source": src, "replaces": repl, "launches": 0,
-                     "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
-    back = ntt4.ntt4_inv(ntt4.ntt4_fwd(a, t), t)
-    if not torch.equal(back, a):
-        raise AssertionError("K4(K3(x)) != x")
-    log("[phase 2] K4(K3(x)) == x")
-    ntt_path_shapes(crt, sets)
-    return rows + k5_exact_and_timed(crt) + k6_exact_and_timed(crt)
+    return [kernel_row("K1", pm.barrett_mul, modops.barrett_mul,
+                       [(x, y, q, mu_hi, mu_lo) for x, y in zip(xs, ys)],
+                       dims, what, tag),
+            kernel_row("K2", pm.shoup_mul, modops.shoup_mul,
+                       [(x, w, wp, q) for x in xs], dims, what, tag)] \
+        + ntt_rows(crt.tables_for(limbs), xs, what, tag)
 
 
-def k5_conversions(crt, level: int = NUM_Q) -> dict:
-    """The key switch's base conversions at `level` live q limbs:
-    {name: (old_qs, new_qs, hat_inv, mat [new][old])}, digit 0's mod-up
-    (12 -> 34 at the top level) and mod-down's P -> q (12 -> 34)."""
+def k5_rows(crt, level: int = NUM_Q) -> list:
+    """K5 through kernel_row at the key switch's conversions at `level`
+    live q limbs: digit 0's mod-up (12 -> 34 at the top level) and
+    mod-down's 12 P -> 34 q."""
+    from ace_tpu_torch.ops import baseconv, modops
+    rng = np.random.default_rng(SEED + 5)
     sz = len(crt.parts[0])
     compl = crt.compl_indices[level - 1][0]
     m = crt.part_hat_mod_compl[level - 1][0]
-    return {
+    convs = {
         f"mod-up {sz} -> {len(compl)}": (
             crt.parts[0][:sz], [crt.all_primes[g] for g in compl],
             crt.part_hat_inv_mod_q[0][sz - 1],
@@ -319,79 +389,43 @@ def k5_conversions(crt, level: int = NUM_Q) -> dict:
             crt.p_primes, crt.q_primes[:level], crt.p_hat_inv_mod_p,
             crt.p_hat_mod_q[:level]),
     }
+    rows = []
+    for what, conv in convs.items():
+        old, new = conv[:2]
+        consts = modops.to_torch(baseconv.constants(*conv), crt.device)
+        xs = residue_sets(old, crt.degree, crt.device, rng)
+        rows.append(kernel_row(
+            "K5", baseconv.base_conv, baseconv.base_conv_plain,
+            [(x, consts, len(new)) for x in xs],
+            (len(old), len(new), crt.degree), what, "[phase 2]"))
+    return rows
 
 
-def k5_exact_and_timed(crt) -> list:
-    """K5 (fast base conversion) at the cell's two conversion shapes,
-    each equal word for word to its plain version (poly's
-    _base_conv_plain, the int64 ATen chain) on the same card tensors,
-    then timed like the other kernels: 20 raw launches cycling over 4
-    input sets between CUDA events, median of 10. The 4 sets (12 MB)
-    stay in L2, as K4's fresh output does for the K5 launch after it in
-    a key switch. The plain chain is timed per call with its launch
-    count. Then mod_up of each digit and mod_down at the top level (NTT
-    form), timed with CUDA events with the plain chain in K5's place
-    (before) and with K5 (after). Returns the K5 row of phase 2's
-    table."""
+K6_SHAPES = ((12, 22), (8, 46))  # (messages, limbs) at N = DEGREE
+
+
+def k6_rows(crt) -> list:
+    """K6 through kernel_row at the bundles' shapes [R, LK, N]: a conv
+    bundle's 12 messages at level 10 (22 limbs) and a BSGS level's 8 at
+    the top (46), on messages over the whole int64 range with 0, -1 and
+    its two extremes among them."""
     import torch
-    from ace_tpu_torch.ops import baseconv, kernels, modops
-    from ace_tpu_torch.poly import poly as P
-    rng = np.random.default_rng(SEED + 5)
+    from ace_tpu_torch.ops import lift
+    rng = np.random.default_rng(SEED + 6)
     n = crt.degree
-    lib = kernels.lib("baseconv")
-    row = None
-    for what, (old, new, hat_inv, mat) in k5_conversions(crt).items():
-        xs = [modops.to_torch(np.stack([rng.integers(0, q, n, dtype=np.uint64)
-                                        for q in old]), crt.device)
-              for _ in range(4)]
-        got = P._base_conv_data(xs[0], old, new, hat_inv, mat, crt)
-        want = P._base_conv_plain(xs[0], old, new, hat_inv, mat, crt)
-        torch.cuda.synchronize()
-        err = int((got != want).sum().item())
-        if err:
-            raise AssertionError(f"K5 {what}: {err} residues differ from "
-                                 f"the plain version")
-        consts = crt.const(("k5", tuple(old), tuple(new), tuple(hat_inv)),
-                           lambda: None)
-        out = torch.empty_like(got)
-        st = kernels.stream_ptr(out)
-        O, J = len(old), len(new)
-
-        def launch(i):
-            kernels.check(lib.ace_k5_base_conv(
-                xs[i % 4].data_ptr(), consts.data_ptr(), out.data_ptr(), O,
-                J, n, st), "K5 base_conv")
-        ms = time_ms(launch, reps=10, batch=20)
-        wrap_ms = time_ms(lambda i: P._base_conv_data(
-            xs[i % 4], old, new, hat_inv, mat, crt), reps=10)
-        chain = count_cuda_launches(lambda: P._base_conv_plain(
-            xs[0], old, new, hat_inv, mat, crt))
-        plain_ms = time_ms(lambda i: P._base_conv_plain(
-            xs[i % 4], old, new, hat_inv, mat, crt), reps=10)
-        nbytes = (O + J) * n * 8
-        imads = n * (O * J * (MUL_HI + MUL_LO) + O * SHOUP_IMAD
-                     + J * (BARRETT_IMAD - MUL_HI - MUL_LO))
-        b_ms, b_by = bound(nbytes, imads)
-        log(f"[phase 2] K5 base_conv {what} at N = {n}: exact; kernel "
-            f"{ms:.4f} ms (wrapper call {wrap_ms:.4f} ms, plain ATen chain "
-            f"{plain_ms:.4f} ms in {chain} launches); bound {b_ms:.4f} ms "
-            f"by {b_by} ({nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M IMAD) "
-            f"= {100 * b_ms / ms:.0f}% of roofline; grid {-(-n // 128)} x "
-            f"{-(-J // baseconv.slice_rows(J))} blocks of 128 threads, "
-            f"{baseconv.slice_rows(J)} target rows a block")
-        if row is None:
-            row = {"name": "K5 base_conv", "route": "cuda",
-                   "source": "ace_tpu_torch/csrc/baseconv.cu",
-                   "replaces": "none (ace_tpu's base conversion is jnp "
-                               "code, poly/poly.py _base_conv_data)",
-                   "launches": 0, "max_abs_err": 0, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None,
-                   "plain_launches": chain}
-        row.setdefault("by_shape", {})[what] = {
-            "ms": ms, "bound_ms": b_ms, "plain_ms": plain_ms}
-    k5_key_switch_timed(crt, rng)
-    return [row]
+    rows = []
+    for R, LK in K6_SHAPES:
+        idx = list(range(LK - crt.num_p)) + list(
+            range(crt.num_q, crt.num_q + crt.num_p))
+        qk, muh, mulo = crt.mod_arrays(idx)
+        xs = [torch.as_tensor(rng.integers(-(1 << 62), 1 << 62, (R, n)),
+                              device=crt.device) for _ in range(4)]
+        xs[0][0, :4] = torch.tensor([0, -1, -(1 << 63), (1 << 63) - 1])
+        rows.append(kernel_row(
+            "K6", lift.lift_msgs, lift.lift_msgs_plain,
+            [(x, qk, muh, mulo) for x in xs], (R, LK, n),
+            "a conv bundle" if LK < 46 else "a BSGS level", "[phase 2]"))
+    return rows
 
 
 def count_cuda_launches(fn) -> int:
@@ -407,118 +441,6 @@ def count_cuda_launches(fn) -> int:
                if e.device_type() == DeviceType.CUDA)
 
 
-def k5_key_switch_timed(crt, rng, level: int = NUM_Q) -> None:
-    """mod_up of each digit and mod_down at `level` (NTT form), each
-    timed with CUDA events (median of 10 samples of 5 calls), with the
-    plain chain in K5's place and with K5; both give the same words."""
-    import torch
-    from ace_tpu_torch.ops import modops
-    from ace_tpu_torch.poly import poly as P
-
-    def data(primes):
-        return modops.to_torch(np.stack([rng.integers(0, q, crt.degree,
-                                                      dtype=np.uint64)
-                                         for q in primes]), crt.device)
-    x = data(crt.q_primes[:level])
-    xp = data(crt.q_primes[:level] + crt.p_primes)
-    digits = crt.num_decomp(level)
-    steps = {f"mod_up digit {d}": (lambda d=d: P.mod_up(P.decompose(
-        P.RnsPoly(x, level, 0, True), crt, d), crt, level, d).data)
-        for d in range(digits)}
-    steps["mod_down"] = lambda: P.mod_down(
-        P.RnsPoly(xp, level, crt.num_p, True), crt).data
-    k5 = P._base_conv_data
-    res = {}
-    for name, fn in steps.items():
-        after_out = fn()
-        after = time_ms(lambda i: fn(), reps=10, batch=5)
-        P._base_conv_data = P._base_conv_plain
-        try:
-            before_out = fn()
-            before = time_ms(lambda i: fn(), reps=10, batch=5)
-        finally:
-            P._base_conv_data = k5
-        if not torch.equal(after_out, before_out):
-            raise AssertionError(f"{name} with K5 differs from the plain "
-                                 f"chain")
-        res[name] = (before, after)
-    log("[phase 2] key switch at level " + str(level) + ", before (plain "
-        "chain) -> after (K5), ms: " + ", ".join(
-            f"{k} {b:.3f} -> {a:.3f}" for k, (b, a) in res.items()))
-
-
-K6_SHAPES = ((12, 22), (8, 46))  # (messages, limbs) at N = DEGREE
-
-
-def k6_exact_and_timed(crt) -> list:
-    """K6 (the plaintext-message lift) at the bundles' shapes [R, LK, N]:
-    a conv bundle's 12 messages at level 10 (22 limbs) and a BSGS level's
-    8 at the top (46), each equal word for word to its plain version
-    (evaluator._lift_msgs_plain, the int64 ATen chain) on the same card
-    tensors, then timed like K5: 20 raw launches cycling over 4 message
-    sets between CUDA events, median of 10; the plain chain per call with
-    its launch count. Returns the K6 row of phase 2's table."""
-    import torch
-    from ace_tpu_torch.ckks.evaluator import _lift_msgs_plain
-    from ace_tpu_torch.ops import kernels, lift
-    rng = np.random.default_rng(SEED + 6)
-    n = crt.degree
-    lib = kernels.lib("lift")
-    row = None
-    for R, LK in K6_SHAPES:
-        idx = list(range(LK - crt.num_p)) + list(
-            range(crt.num_q, crt.num_q + crt.num_p))
-        qk, muh, mulo = crt.mod_arrays(idx)
-        xs = [torch.as_tensor(rng.integers(-(1 << 62), 1 << 62, (R, n)),
-                              device=crt.device) for _ in range(4)]
-        xs[0][0, :4] = torch.tensor([0, -1, -(1 << 63), (1 << 63) - 1])
-        got = lift.lift_msgs(xs[0], qk, muh, mulo)
-        want = _lift_msgs_plain(xs[0], qk, muh, mulo)
-        torch.cuda.synchronize()
-        err = int((got != want).sum().item())
-        if err:
-            raise AssertionError(f"K6 [{R}, {LK}, {n}]: {err} residues "
-                                 f"differ from the plain version")
-        out = torch.empty_like(got)
-        st = kernels.stream_ptr(out)
-
-        def launch(i):
-            kernels.check(lib.ace_k6_lift_msgs(
-                xs[i % 4].data_ptr(), qk.data_ptr(), muh.data_ptr(),
-                mulo.data_ptr(), out.data_ptr(), R, LK, n, st),
-                "K6 lift_msgs")
-        ms = time_ms(launch, reps=10, batch=20)
-        wrap_ms = time_ms(lambda i: lift.lift_msgs(xs[i % 4], qk, muh, mulo),
-                          reps=10)
-        chain = count_cuda_launches(lambda: _lift_msgs_plain(
-            xs[0], qk, muh, mulo))
-        plain_ms = time_ms(lambda i: _lift_msgs_plain(xs[i % 4], qk, muh,
-                                                      mulo), reps=10)
-        nbytes = (R + R * LK) * n * 8
-        imads = R * LK * n * 2 * (MUL_HI + MUL_LO)
-        b_ms, b_by = bound(nbytes, imads)
-        log(f"[phase 2] K6 lift_msgs [{R}, {LK}, {n}]: exact; kernel "
-            f"{ms:.4f} ms (wrapper call {wrap_ms:.4f} ms, plain ATen chain "
-            f"{plain_ms:.4f} ms in {chain} launches); bound {b_ms:.4f} ms "
-            f"by {b_by} ({nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M IMAD) "
-            f"= {100 * b_ms / ms:.0f}% of roofline; grid "
-            f"{' x '.join(map(str, lift.launch_shape(R, LK, n)))} blocks of "
-            f"{lift.THREADS} threads")
-        if row is None:
-            row = {"name": "K6 lift_msgs", "route": "cuda",
-                   "source": "ace_tpu_torch/csrc/lift.cu",
-                   "replaces": "none (ace_tpu's lift is jnp code inside its "
-                               "bundles, ckks/evaluator.py _lift_msgs)",
-                   "launches": 0, "max_abs_err": 0, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None,
-                   "plain_launches": chain}
-        row.setdefault("by_shape", {})[f"[{R}, {LK}, {n}]"] = {
-            "ms": ms, "bound_ms": b_ms, "plain_ms": plain_ms,
-            "plain_launches": chain}
-    return [row]
-
-
 def ntt_shape(L: int, n: int) -> str:
     from ace_tpu_torch.ops import ntt4
     s = ntt4.launch_shape(L, n)
@@ -527,72 +449,6 @@ def ntt_shape(L: int, n: int) -> str:
             f"{s['smem_bytes'] // 1024} KB dynamic smem per block, "
             f"{s['resident_k3']}/{s['resident_k4']} clusters resident at "
             f"once (K3/K4)")
-
-
-def ntt_exact_and_timed(t, xs, what: str, tag: str) -> dict:
-    """K3 and K4 on tables `t` over the input sets xs (each [L, n] on the
-    card): each held word for word against its plain version and the
-    round trip checked on xs[0], then timed like phase 2 (20 raw
-    launches cycling over the sets between CUDA events, median of 10).
-    Returns {"K3": (ms, bound_ms), "K4": (ms, bound_ms)}."""
-    import torch
-    from ace_tpu_torch.ops import kernels, ntt, ntt4
-    L, n = xs[0].shape
-    logn = n.bit_length() - 1
-    f = ntt4.ntt4_fwd(xs[0], t)
-    if not torch.equal(f, ntt.ntt_fwd_plain(xs[0], t)):
-        raise AssertionError(f"K3 at [{L}, {n}] differs from the plain "
-                             f"version")
-    if not torch.equal(ntt4.ntt4_inv(xs[0], t), ntt.ntt_inv_plain(xs[0], t)):
-        raise AssertionError(f"K4 at [{L}, {n}] differs from the plain "
-                             f"version")
-    if not torch.equal(ntt4.ntt4_inv(f, t), xs[0]):
-        raise AssertionError(f"K4(K3(x)) != x at [{L}, {n}]")
-    lib = kernels.lib("ntt")
-    st = kernels.stream_ptr(xs[0])
-    out = torch.empty_like(xs[0])
-    tp = {k: getattr(t, k).data_ptr() for k in (
-        "rou", "rou_prec", "rou_inv", "rou_inv_prec", "q", "n_inv",
-        "n_inv_prec", "rows")}
-    k = len(xs)
-    raw = {
-        "K3": lambda i: lib.ace_k3_ntt_fwd(
-            xs[i % k].data_ptr(), out.data_ptr(), tp["rou"],
-            tp["rou_prec"], tp["q"], tp["rows"], L, logn, st),
-        "K4": lambda i: lib.ace_k4_ntt_inv(
-            xs[i % k].data_ptr(), out.data_ptr(), tp["rou_inv"],
-            tp["rou_inv_prec"], tp["q"], tp["n_inv"], tp["n_inv_prec"],
-            tp["rows"], L, logn, st),
-    }
-    res, msg = {}, []
-    for key, f_raw in raw.items():
-        def launch(i, f=f_raw, what=f"{key} at [{L}, {n}]"):
-            kernels.check(f(i), what)
-        ms = time_ms(launch, reps=10, batch=20)
-        stages = logn + (2 if key == "K4" else 0)  # as in phase_kernels
-        b_ms, _ = bound(4 * L * n * 8, SHOUP_IMAD * L * (n // 2) * stages)
-        res[key] = (ms, b_ms)
-        msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms "
-                   f"({100 * b_ms / ms:.0f}%)")
-    log(f"{tag} [{L}, {n}] ({what}): K3, K4 exact, round trip exact; "
-        f"{'; '.join(msg)}; {ntt_shape(L, n)}")
-    return res
-
-
-def ntt_path_shapes(crt, sets) -> None:
-    """K3 and K4 at the limb counts the slice launches at N = 2^15:
-    rescale's last q limb (1), the P limbs of mod-down (12) and the q
-    chain (34), each through ntt_exact_and_timed (4 input sets; at 1
-    limb they all stay in L2)."""
-    import torch
-    for what, rows in (("rescale's last q limb", [NUM_Q - 1]),
-                       ("the P limbs", list(range(NUM_Q, crt.num_q
-                                                  + crt.num_p))),
-                       ("the q chain", list(range(NUM_Q)))):
-        idx = torch.tensor(rows, device=crt.device)
-        ntt_exact_and_timed(crt.tables_for(rows),
-                            [x.index_select(0, idx) for x, _ in sets],
-                            what, "[phase 2]")
 
 
 # ---------------------------------------------------------------------------
@@ -1354,90 +1210,6 @@ def attention_data(seq: int, d: int, seed: int = SEED):
     return w, x, ranges
 
 
-def kernels_exact_at(crt, rows, what: str, tag: str) -> None:
-    """K1-K4 through their wrappers on random residues over the limbs
-    `rows` of crt, each equal word for word to its plain version on the
-    same tensors, and K4(K3(x)) == x."""
-    import torch
-    from ace_tpu_torch.ops import modops, ntt, ntt4, pallas_modops as pm
-    n, L = crt.degree, len(rows)
-    primes = [crt.all_primes[r] for r in rows]
-    rng = np.random.default_rng(SEED + L)
-    a, b = (modops.to_torch(np.stack([
-        rng.integers(0, p, n, dtype=np.uint64) for p in primes]), crt.device)
-        for _ in range(2))
-    q, mu_hi, mu_lo = crt.mod_arrays(rows)
-    ws = [int(rng.integers(1, p)) for p in primes]
-    w = crt.column(ws)
-    wp = crt.column([modops.precompute_shoup(v, p)
-                     for v, p in zip(ws, primes)])
-    t = crt.tables_for(rows)
-    for key, got, want in (
-            ("K1", pm.barrett_mul(a, b, q, mu_hi, mu_lo),
-             pm.barrett_mul_plain(a, b, q, mu_hi, mu_lo)),
-            ("K2", pm.shoup_mul(a, w, wp, q), pm.shoup_mul_plain(a, w, wp, q)),
-            ("K3", ntt4.ntt4_fwd(a, t), ntt.ntt_fwd_plain(a, t)),
-            ("K4", ntt4.ntt4_inv(a, t), ntt.ntt_inv_plain(a, t))):
-        if not torch.equal(got, want):
-            raise AssertionError(f"{key} at L = {L} ({what}) differs from "
-                                 f"the plain version")
-    if not torch.equal(ntt4.ntt4_inv(ntt4.ntt4_fwd(a, t), t), a):
-        raise AssertionError(f"K4(K3(x)) != x at L = {L}")
-    log(f"{tag} [{L}, {n}] ({what}): K1-K4 equal to their plain versions, "
-        f"K4(K3(x)) == x")
-
-
-def k1_k2_timed(crt, rows, what: str, tag: str) -> dict:
-    """K1 and K2 over the limbs `rows` of crt timed as phase 2 times them
-    (20 launches through the C launcher between CUDA events, cycling over
-    4 input sets, median of 10) with phase 2's bound: bytes of each input
-    read once and the output written once, IMADs per product. Returns
-    {"K1": (ms, bound_ms, bound_by), "K2": ...}."""
-    import torch
-    from ace_tpu_torch.ops import kernels, modops
-    n, L = crt.degree, len(rows)
-    logn = n.bit_length() - 1
-    primes = [crt.all_primes[r] for r in rows]
-    rng = np.random.default_rng(SEED + 2 * L)
-
-    def residues():
-        return modops.to_torch(np.stack([
-            rng.integers(0, p, n, dtype=np.uint64) for p in primes]),
-            crt.device)
-
-    sets = [(residues(), residues()) for _ in range(4)]
-    out = torch.empty_like(sets[0][0])
-    q, mu_hi, mu_lo = crt.mod_arrays(rows)
-    ws = [int(rng.integers(1, p)) for p in primes]
-    w = crt.column(ws)
-    wp = crt.column([modops.precompute_shoup(v, p)
-                     for v, p in zip(ws, primes)])
-    mm = kernels.lib("modmul")
-    st = kernels.stream_ptr(out)
-    ptr = [(a.data_ptr(), b.data_ptr()) for a, b in sets]
-    raw = {
-        "K1": (lambda i: mm.ace_k1_barrett_mul(
-            *ptr[i % 4], q.data_ptr(), mu_hi.data_ptr(), mu_lo.data_ptr(),
-            out.data_ptr(), L, logn, 0, st),
-            3 * L * n * 8, BARRETT_IMAD * L * n),
-        "K2": (lambda i: mm.ace_k2_shoup_mul(
-            ptr[i % 4][0], w.data_ptr(), wp.data_ptr(), q.data_ptr(),
-            out.data_ptr(), L, logn, st),
-            2 * L * n * 8, SHOUP_IMAD * L * n),
-    }
-    res, msg = {}, []
-    for key, (f, nbytes, imads) in raw.items():
-        def launch(i, f=f, what=f"{key} at [{L}, {n}]"):
-            kernels.check(f(i), what)
-        ms = time_ms(launch, reps=10, batch=20)
-        b_ms, b_by = bound(nbytes, imads)
-        res[key] = (ms, b_ms, b_by)
-        msg.append(f"{key} {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-                   f"({100 * b_ms / ms:.0f}%)")
-    log(f"{tag} [{L}, {n}] ({what}): {'; '.join(msg)}")
-    return res
-
-
 class _BlockProbe:
     """Counts and stage marks for one encrypted_attention call, taken
     without changing the port's code: the evaluator's rotate and
@@ -1525,17 +1297,19 @@ def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
     """One head of the LLaMA attention block encrypted through the port's
     models/llama_fhe.encrypted_attention, at CkksParams(degree=2*seq*d,
     num_q, 60, 50), the chain tests/test_llama_fhe.py uses:
-      a. K1-K4 equal to their plain versions at this chain's shapes, the
-         extended basis [num_q + num_p, N] and the q chain [num_q, N]; one
-         rotate and one mul+rescale at the top level equal on the device
-         and on the CPU;
+      a. K1-K4 at this chain's shapes, the extended basis
+         [num_q + num_p, N] and the q chain [num_q, N], through
+         kernel_row (equal to their plain versions; timed on the card);
+         one rotate and one mul+rescale at the top level equal on the
+         device and on the CPU;
       b. the block cold (every rotation key made on demand, the LRU
          unbounded) on attention_data's input, stage by stage; decoded
          within ATTN_TOL of attention_plain, finite;
       c. the block's q projection again on its own input, keys held,
          under torch.profiler; it must equal the block's residue for
          residue.
-    Returns the kernels' launches during b with the block's metrics;
+    Returns the kernels' launches during b with the block's metrics and
+    a's kernel rows;
     main() fails unless every kernel launched. device=None is the card;
     tests/test_torch_llama.py runs this phase on the CPU at seq = 4,
     d = 8."""
@@ -1577,9 +1351,10 @@ def phase_attention(device=None, seq: int = ATTN_SEQ, d: int = ATTN_D,
     log(f"{tag} N = {params.degree}, seq = {seq}, d = {d}: {crt.num_q} q "
         f"primes + {crt.num_p} P primes, {params.num_q_parts} digits; "
         f"context and keys {t_ctx:.1f} s")
-    kernels_exact_at(crt, range(crt.num_q + crt.num_p), "the extended basis",
-                     tag)
-    kernels_exact_at(crt, range(crt.num_q), "the q chain", tag)
+    rng = np.random.default_rng(SEED + crt.num_q)
+    res["kernel_rows"] = chain_rows(crt, range(crt.num_q + crt.num_p),
+                                    "the extended basis", tag, rng) \
+        + chain_rows(crt, range(crt.num_q), "the q chain", tag, rng)
     w, x, ranges = attention_data(seq, d)
     ct = ev.encrypt(enc.encode(x.reshape(-1).astype(np.complex128)))
     t0 = time.perf_counter()
@@ -2422,12 +2197,11 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
     """bench_torch.py and bench_micro_torch.py at their defaults, through
     their own functions (the scripts loaded from the checkout):
     (a) the native C library's build and the one-thread CPU NTT baseline;
-    (b) K3 and K4 at bench_torch's [8, N] and over bench_micro_torch's
-        whole chain [num_q + P, N], each equal word for word to its plain
-        version, round trip included, and timed (ntt_exact_and_timed);
-        then K1-K4 over that chain and over its q primes alone
-        (kernels_exact_at), the shapes of the key switch and the ops,
-        and K1 and K2 timed there (k1_k2_timed);
+    (b) through kernel_row (equal word for word to the plain versions;
+        timed on the card): K3 and K4 at bench_torch's [8, N], round
+        trip included (ntt_rows), then K1-K4 over bench_micro_torch's
+        whole chain [num_q + P, N] and over its q primes alone
+        (chain_rows), the shapes of the key switch and the ops;
     (c) bench_torch's chained K3 passes at [8, N]: NTT/s, vs_baseline;
     (d) bench_micro_torch's context and ops (--iters `iters`), then one
         rotate and one mul+relin+rescale decoded against np.roll(msg, -1)
@@ -2440,7 +2214,7 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
     device, degree, num_q, iters and sparse let the CPU run it small."""
     import torch
     from ace_tpu_torch import resolve_device
-    from ace_tpu_torch.ops import modops, native, ntt, read_counters, \
+    from ace_tpu_torch.ops import modops, native, read_counters, \
         reset_counters
     from ace_tpu_torch.runtime.timing import TIMING
     from ace_tpu_torch.utils.card import syncer
@@ -2476,31 +2250,14 @@ def phase_bench(device=None, degree: int = 1 << 16, num_q: int = 24,
 
     _, t8, x8 = bt.ntt_inputs(degree, bt.LIMBS, dev)
     rng_b = np.random.default_rng(SEED)
-    for what, t, x0 in (("bench_torch's shape", t8, x8),
-                        ("bench_micro_torch's q and P chain",
-                         crt.ntt_tables, None)):
-        primes = modops.to_numpy(t.q)[:, 0]
-        xs = [] if x0 is None else [x0]
-        while len(xs) < 4:
-            xs.append(modops.to_torch(np.stack([
-                rng_b.integers(0, q, degree, dtype=np.uint64)
-                for q in primes]), dev))
-        if gpu:
-            out[f"ntt_{len(primes)}"] = ntt_exact_and_timed(
-                t, xs, what, "[phase 10] (b)")
-        else:
-            back = ntt.ntt_inv(ntt.ntt_fwd(xs[0], t), t)
-            if not torch.equal(back, xs[0]):
-                raise AssertionError(f"K4(K3(x)) != x ({what})")
-    del xs
-    out["k1_k2"] = {}
-    for rows, what in ((range(crt.num_q + crt.num_p),
-                        "bench_micro_torch's q and P chain"),
-                       (range(crt.num_q), "bench_micro_torch's q chain")):
-        kernels_exact_at(crt, rows, what, "[phase 10] (b)")
-        if gpu:
-            out["k1_k2"][len(rows)] = k1_k2_timed(crt, list(rows), what,
-                                                  "[phase 10] (b)")
+    tag = "[phase 10] (b)"
+    out["kernel_rows"] = ntt_rows(t8, [x8] + residue_sets(
+        modops.to_numpy(t8.q)[:, 0], degree, dev, rng_b, 3),
+        "bench_torch's shape", tag)
+    for limbs, what in ((range(crt.num_q + crt.num_p),
+                         "bench_micro_torch's q and P chain"),
+                        (range(crt.num_q), "bench_micro_torch's q chain")):
+        out["kernel_rows"] += chain_rows(crt, limbs, what, tag, rng_b)
 
     reset_counters()
     d = bt.bench_device(degree, bt.LIMBS, dev)
@@ -2864,8 +2621,7 @@ def main() -> int:
         if idle:
             raise AssertionError(f"kernels never launched in ResNet-20: "
                                  f"{idle}")
-        for r in rows:
-            r["launches"] = full["launches"][r["name"].split()[0]]
+        launches = {"launches": full["launches"]}
         log(f"[summary] ResNet-20: cold {full['cold_s']:.1f} s ("
             f"{full['keys']} rotation keys {full['rot_keygen_s']:.1f} s), "
             f"max_err {full['max_err']:.3e} "
@@ -2904,8 +2660,8 @@ def main() -> int:
         if idle:
             raise AssertionError(f"kernels never launched in the attention "
                                  f"block: {idle}")
-        for r in rows:
-            r["launches_llama"] = att["launches"][r["name"].split()[0]]
+        launches["launches_llama"] = att["launches"]
+        rows += att["kernel_rows"]
         log(f"[summary] attention block (seq {ATTN_SEQ}, d {ATTN_D}, "
             f"{ATTN_NUM_Q} q primes): cold {att['block_s']:.1f} s ("
             f"{att['keys']} rotation keys {att['keys_s']:.1f} s), "
@@ -2918,8 +2674,7 @@ def main() -> int:
         del att
         spmd = phase_spmd(sm=sm, want=res["residues"])
         lap("9")
-        for r in rows:
-            r["launches_spmd"] = spmd["launches_spmd"][r["name"].split()[0]]
+        launches["launches_spmd"] = spmd["launches_spmd"]
         log(f"[summary] SPMD key switch: worlds 9a {spmd['seconds']['9a']:.1f}"
             f" s, 9b {spmd['seconds']['9b']:.1f} s, 9c "
             f"{spmd['seconds']['9c']:.1f} s; launches in 9a-9b over all "
@@ -2928,12 +2683,12 @@ def main() -> int:
             + mesh_summary(spmd["ranks"]["9a"], spmd["ranks"]["9b"]))
         limb = phase_limb(sm=sm, want=res["residues"])
         lap("9d")
-        for r in rows:
-            k = r["name"].split()[0]
-            r["launches_limb"] = limb["launches_limb"][k]
-            r["launches_mesh_programs"] = (spmd["launches_programs"][k]
-                                           + limb["launches_programs"][k])
-        idle = [r["name"] for r in rows if not r["launches_mesh_programs"]]
+        launches["launches_limb"] = limb["launches_limb"]
+        launches["launches_mesh_programs"] = {
+            k: v + limb["launches_programs"][k]
+            for k, v in spmd["launches_programs"].items()}
+        idle = [k for k, v in launches["launches_mesh_programs"].items()
+                if not v]
         if idle:
             raise AssertionError(f"kernels never launched through programs "
                                  f"in phases 9a-9d: {idle}")
@@ -2949,20 +2704,14 @@ def main() -> int:
         if idle:
             raise AssertionError(f"kernels never launched in phase 10: "
                                  f"{idle}")
-        for r in rows:
-            k = r["name"].split()[0]
-            r["launches_2e16"] = bench["launches"][k]
-            r["launches_programs"] = prog["launches_programs"][k]
-            if k in ("K1", "K2"):
-                r["ms_2e16"] = {f"[{L}, 65536]": t[k][0]
-                                for L, t in bench["k1_k2"].items()}
-                r["bound_ms_2e16"] = {f"[{L}, 65536]": t[k][1]
-                                      for L, t in bench["k1_k2"].items()}
-        nt8, bs = bench["ntt_8"], bench["bootstrap_s"]
+        launches["launches_2e16"] = bench["launches"]
+        launches["launches_programs"] = prog["launches_programs"]
+        rows += bench["kernel_rows"]
+        (k3, k4), bs = bench["kernel_rows"][:2], bench["bootstrap_s"]
         log(f"[summary] benchmark entry points at N = 2^16: bench_torch "
             f"--ntt {bench['bench_ntt']['value']} NTT/s (vs_baseline "
             f"{bench['bench_ntt']['vs_baseline']}); K3/K4 at [8, 65536] "
-            f"{nt8['K3'][0]:.4f} / {nt8['K4'][0]:.4f} ms; context "
+            f"{k3['ms']:.4f} / {k4['ms']:.4f} ms; context "
             f"{bench['context_s']:.1f} s; rotate "
             f"{bench['ops_ms']['rotate']:.2f} ms; bootstrap full cold / "
             f"warm {bs['bootstrap_full_cold']:.1f} / "
@@ -2975,7 +2724,7 @@ def main() -> int:
             + f"; script {time.perf_counter() - t_start:.1f} s on "
             f"{dev['card']}")
         print(dev["card"])
-        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"kernels": kernel_table(rows, launches)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

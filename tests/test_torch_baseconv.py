@@ -3,12 +3,15 @@ ops/baseconv.py), behind every mod-up and mod-down.
 
 The CPU tests check the conversions K5 is handed (its 128-bit accumulator
 cannot overflow at the cell's ring or at ACE's N = 2^16 ring), a model of
-the kernel's slicing and constant layout against the plain version, and
-that CPU tensors take the plain version without building a library. The
-`gpu` tests hold K5 word for word to the plain version run on the CPU,
-inside captured op programs too, and count its launches under the
-profiler. This file imports neither jax nor ace_tpu, so it also runs on a
-machine that has only PyTorch:
+the kernel's slicing and constant layout against the plain version
+(baseconv.base_conv_plain, which reads the kernel's packed constants),
+the plain version against ace_tpu's _base_conv_data, and that CPU
+tensors take the plain version without building a library. The `gpu`
+tests hold K5 word for word to the plain version run on the CPU, inside
+captured op programs too, and count its launches under the profiler.
+This file imports neither jax nor ace_tpu at import (only the test that
+compares with ace_tpu does), so it also runs on a machine that has only
+PyTorch:
 
     python -m pytest tests/test_torch_baseconv.py -m gpu --noconftest
 """
@@ -82,6 +85,12 @@ def _every_conversion(crt, kind: str):
         for level in range(crt.per_part_size, crt.num_q + 1):
             for d in range(crt.num_decomp(level)):
                 yield _spmd_conv(crt, level, d)
+
+
+def _plain(x, conv):
+    """The plain version on the conversion (old, new, hat_inv, mat)."""
+    return baseconv.base_conv_plain(
+        x, TM.to_torch(baseconv.constants(*conv), x.device), len(conv[1]))
 
 
 def _residues(primes, n, seed):
@@ -171,17 +180,34 @@ def test_kernel_model_matches_plain(case):
             "P->q1": lambda: _mod_down_conv(crt, 1),
             "P->q34": lambda: _mod_down_conv(crt, 34),
             "spmd": lambda: _spmd_conv(crt, 34, 2)}[case]()
-    old, new, hat_inv, mat = conv
-    x = _residues(old, 6, 7)
-    want = P._base_conv_plain(x, old, new, hat_inv, mat, crt)
-    got = _k5_model(TM.to_numpy(x), baseconv.constants(*conv), len(new))
+    x = _residues(conv[0], 6, 7)
+    want = _plain(x, conv)
+    got = _k5_model(TM.to_numpy(x), baseconv.constants(*conv), len(conv[1]))
     np.testing.assert_array_equal(got, TM.to_numpy(want))
 
 
+def test_plain_matches_ace_tpu_at_the_key_switch():
+    """The plain version, reading the packed constants, equals ace_tpu's
+    _base_conv_data word for word at a small ring's key-switch
+    conversions: each digit's mod-up and mod-down at the top level, and
+    the last (short) digit's mod-up one level down."""
+    import jax.numpy as jnp
+    from ace_tpu.poly import poly as AP
+    crt = CrtContext(8, 60, 56, 256, 3, device="cpu")
+    convs = [_mod_up_conv(crt, 8, d) for d in range(crt.num_decomp(8))] \
+        + [_mod_down_conv(crt, 8), _mod_up_conv(crt, 7, 2)]
+    for k, conv in enumerate(convs):
+        x = _residues(conv[0], crt.degree, 20 + k)
+        want = AP._base_conv_data(jnp.asarray(TM.to_numpy(x)), *conv)
+        np.testing.assert_array_equal(TM.to_numpy(_plain(x, conv)),
+                                      np.asarray(want))
+
+
 def test_cpu_takes_the_plain_version_and_builds_nothing(monkeypatch):
-    """_base_conv_data on CPU tensors is the plain version, launches
-    nothing and never builds or loads a kernel library; K5 itself refuses
-    CPU tensors. K5 counts launches and, not being an NTT, no limbs."""
+    """base_conv on CPU tensors is the plain version, launches nothing
+    and never builds or loads a kernel library, and so is
+    poly._base_conv_data, which calls it. K5 counts launches and, not
+    being an NTT, no limbs."""
     def refuse(*a, **k):
         raise AssertionError("a kernel library was built or loaded")
     monkeypatch.setattr(kernels, "build_all", refuse)
@@ -190,12 +216,12 @@ def test_cpu_takes_the_plain_version_and_builds_nothing(monkeypatch):
     conv = _mod_up_conv(crt, 4, 0)
     x = _residues(conv[0], 64, 3)
     ops.reset_counters()
-    got = P._base_conv_data(x, *conv, crt)
-    assert torch.equal(got, P._base_conv_plain(x, *conv, crt))
+    consts = TM.to_torch(baseconv.constants(*conv))
+    got = baseconv.base_conv(x, consts, len(conv[1]))
+    assert torch.equal(got, baseconv.base_conv_plain(x, consts, len(conv[1])))
+    assert torch.equal(P._base_conv_data(x, *conv, crt), got)
     assert ops.read_counters()["K5"] == 0
     assert "K5" not in ops.read_limbs()
-    with pytest.raises(TypeError):
-        baseconv.base_conv(x, torch.zeros(1, dtype=torch.int64), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -245,9 +271,9 @@ def test_k5_equals_plain_on_the_cpu(cell, case):
     launch each."""
     g, c = cell
     make, n = CARD_CASES[case]
-    old, new, hat_inv, mat = make(c)
+    old, new, hat_inv, mat = conv = make(c)
     x = _residues(old, n, 11)
-    want = P._base_conv_plain(x, old, new, hat_inv, mat, c)
+    want = _plain(x, conv)
     before = ops.read_counters()["K5"]
     got = P._base_conv_data(x.cuda(), old, new, hat_inv, mat, g)
     torch.cuda.synchronize()
@@ -261,9 +287,10 @@ def test_k5_at_n_2e11():
     _card()
     g, c = _small(1 << 11)
     convs = [_mod_up_conv(c, 8, d) for d in range(c.num_decomp(8))]
-    for old, new, hat_inv, mat in convs + [_mod_down_conv(c, 8)]:
+    for conv in convs + [_mod_down_conv(c, 8)]:
+        old, new, hat_inv, mat = conv
         x = _residues(old, 1 << 11, len(new))
-        want = P._base_conv_plain(x, old, new, hat_inv, mat, c)
+        want = _plain(x, conv)
         got = P._base_conv_data(x.cuda(), old, new, hat_inv, mat, g)
         np.testing.assert_array_equal(TM.to_numpy(got.cpu()),
                                       TM.to_numpy(want))

@@ -3,9 +3,9 @@ ops/lift.py), behind every MAC group of the hoisted conv bundles and of
 the bootstrap's BSGS levels (Evaluator._mac_msgs).
 
 The CPU tests hold a model of the kernel's word arithmetic and launch
-shape, in Python integers, to the plain version (evaluator's
-_lift_msgs_plain, which Evaluator._lift_msgs takes for CPU tensors) and
-to encoder._signed_to_rns at the cell's ring and at ACE's N = 2^16
+shape, in Python integers, to the plain version (lift.lift_msgs_plain,
+which lift.lift_msgs takes for CPU tensors) and to
+encoder._signed_to_rns at the cell's ring and at ACE's N = 2^16
 ring, on edge messages; check that CPU tensors take the plain version
 without building a library; and that the wrapper refuses what K6
 cannot take. The `gpu` tests hold K6 word for word to the plain
@@ -23,7 +23,7 @@ import torch
 from ace_tpu_torch import interop, ops
 from ace_tpu_torch.ckks import encoder as E
 from ace_tpu_torch.ckks.encoder import Encoder
-from ace_tpu_torch.ckks.evaluator import Evaluator, _lift_msgs_plain
+from ace_tpu_torch.ckks.evaluator import Evaluator
 from ace_tpu_torch.ckks.keygen import KeyGenerator
 from ace_tpu_torch.ckks.params import CkksParams
 from ace_tpu_torch.ops import kernels, lift, modops as TM
@@ -52,7 +52,7 @@ def _crt(ring: str, device: str = "cpu") -> CrtContext:
 def _plain(msgs, qk, muh, mulo):
     """The plain version, on CPU tensors."""
     assert not msgs.is_cuda
-    return _lift_msgs_plain(msgs, qk, muh, mulo)
+    return lift.lift_msgs_plain(msgs, qk, muh, mulo)
 
 
 def _edge_messages(primes, n: int, seed: int) -> torch.Tensor:
@@ -167,25 +167,29 @@ def test_cpu_takes_the_plain_version_and_builds_nothing(monkeypatch):
 
 def test_wrapper_refuses_what_k6_cannot_take():
     """K6 takes [R, n] int64 messages with n even (two columns a thread)
-    and one (q, mu_hi, mu_lo) triple a limb, all int64 on one card: CPU
-    tensors, other dtypes and other shapes are refused before anything is
-    built."""
+    and one (q, mu_hi, mu_lo) triple a limb, all int64 on one card: the
+    wrapper's card branch refuses CPU tensors, other dtypes and other
+    shapes before anything is built, and CPU messages never reach it
+    (lift_msgs returns the plain version's words for them)."""
     crt = CrtContext(4, 60, 56, 64, 2, device="cpu")
     qk, muh, mulo = crt.mod_arrays(range(4))
     msgs = torch.zeros((2, 64), dtype=torch.int64)
     with pytest.raises(TypeError, match="CUDA"):
-        lift.lift_msgs(msgs, qk, muh, mulo)
+        lift._check(msgs, qk, muh, mulo)
     with pytest.raises(TypeError, match="int64"):
-        lift.lift_msgs(msgs.to(torch.int32), qk, muh, mulo)
+        lift._check(msgs.to(torch.int32), qk, muh, mulo)
     with pytest.raises(ValueError, match=r"\[R, n\]"):
-        lift.lift_msgs(msgs[0], qk, muh, mulo)
+        lift._check(msgs[0], qk, muh, mulo)
     with pytest.raises(ValueError, match=r"\[R, n\]"):
-        lift.lift_msgs(msgs[None], qk, muh, mulo)
+        lift._check(msgs[None], qk, muh, mulo)
     with pytest.raises(ValueError, match="n even"):
-        lift.lift_msgs(msgs[:, :63], qk, muh, mulo)
-    before = lift.lift_msgs.launches
+        lift._check(msgs[:, :63], qk, muh, mulo)
     with pytest.raises(ValueError, match="mu word"):
-        lift.lift_msgs(msgs, qk, muh[:3], mulo)
+        lift._check(msgs, qk, muh[:3], mulo)
+    before = lift.lift_msgs.launches
+    msgs = _edge_messages(crt.all_primes, 64, 4)
+    assert torch.equal(lift.lift_msgs(msgs, qk, muh, mulo),
+                       lift.lift_msgs_plain(msgs, qk, muh, mulo))
     assert lift.lift_msgs.launches == before
 
 
@@ -199,10 +203,9 @@ def _card():
 
 
 def _lift_on_card(crt_g, msgs, idx):
-    """Evaluator._lift_msgs' dispatch (it reads nothing of the evaluator)
-    on card tensors."""
+    """lift.lift_msgs, as Evaluator._mac_msgs calls it, on card tensors."""
     qk, muh, mulo = crt_g.mod_arrays(idx)
-    return Evaluator._lift_msgs(None, msgs, qk, muh, mulo)
+    return lift.lift_msgs(msgs, qk, muh, mulo)
 
 
 @pytest.mark.gpu

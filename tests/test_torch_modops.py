@@ -127,8 +127,8 @@ def test_dispatch_counts_no_launch_on_cpu():
     """CPU tensors take the plain versions: the launch counters stay."""
     _, a, b, qa, mh, ml = _ctx(50, shape=(2, 64))
     k1, k2 = TPM.barrett_mul.launches, TPM.shoup_mul.launches
-    TM.barrett_mul_d(*(to_t(x) for x in (a, b, qa, mh, ml)))
-    TM.shoup_mul_d(to_t(a), to_t(b[:, :1]), to_t(b[:, :1]), to_t(qa))
+    TPM.barrett_mul(*(to_t(x) for x in (a, b, qa, mh, ml)))
+    TPM.shoup_mul(to_t(a), to_t(b[:, :1]), to_t(b[:, :1]), to_t(qa))
     assert (TPM.barrett_mul.launches, TPM.shoup_mul.launches) == (k1, k2)
 
 
