@@ -375,6 +375,9 @@ class BootstrapContext:
         factor = 1.0 / n / self.k_bound / (2.0 ** self.deg)
         factor = factor ** (1.0 / budget_enc)
         self.enc_coeff = [c * factor for c in self.enc_coeff]
+        # each BSGS level's message stack by (encoding, s, is_rem): the
+        # tables above, the scales and the shifts fix it (_transform)
+        self._msg_stacks: dict = {}
 
     # -- homomorphic encoding/decoding ----------------------------------
 
@@ -419,52 +422,56 @@ class BootstrapContext:
                 s == (start if encoding else end - 1))
             scale = (self.scale_enc if encoding else self.scale_dec) \
                 if apply_scale else 1.0
-            diags = [coeff[s][u] * scale for u in range(nr)]
             g = p["g_rem"] if is_rem else p["g"]
-            ct = self._bsgs_level(ct, offs, diags, shift, g, slots_value)
+            msgs = ev.kept_msgs(
+                self._msg_stacks, (encoding, s, is_rem),
+                lambda: self._level_msgs(
+                    [coeff[s][u] * scale for u in range(nr)], shift, g))
+            ct = self._bsgs_level(ct, offs, msgs, shift, g)
         return ct
 
-    def _bsgs_level(self, ct: Ciphertext, offs, diags, shift: int,
-                    g: int, slots_value: int) -> Ciphertext:
-        """One collapsed FFT level as baby-step/giant-step rotations
-        (Rotate_iteration, ckks_bootstrap_context.c:1284-1365): baby
-        rotations feed per-giant-step MAC groups whose diagonals are
-        pre-rotated by the giant offset (Evaluator.bsgs_iter_jit).
+    def _level_msgs(self, diags, shift: int, g: int) -> torch.Tensor:
+        """The [b, g, N] messages of one BSGS level: giant step i's
+        diagonals pre-rolled by g*i*shift, zero rows past the last.
 
-        Sparse packing works too: diagonals are the merged 2*slots
-        conjugate-channel tables, so intermediates are 2*slots-periodic;
-        `slots_value` (the offset-reduction period) and the diagonal
-        roll period both come from the merged diagonal length.
-        """
-        assert g >= 2, f"fft_params gives g >= 2, got {g}"
-        ev = self.ev
-        nr = len(offs)
-        # Reference grouping (Rotate_iteration :1237-1383): the BABY
-        # rotations are the centered offsets offs[0:g]; giant step i
-        # rotates by +g*i*shift with its diagonals pre-rolled the
-        # opposite way (Rotate_precomp :354-366 Rotate_vector by
-        # Reduce_rotation(-g*i*shift, m/4)). Zero diagonals are
-        # encoded, not skipped — the reference encodes every dim2 !=
-        # num_rot, and encode(0) is not the zero polynomial (llround's
-        # +0.5 bias), so skipping would break bit-exactness vs the
-        # reference-binary stage vectors.
-        m4 = ev.params.degree // 2
-        b = -(-nr // g)
-        baby_offs = list(offs[:g])
-        giants = [reduce_rotation(g * i * shift, m4) for i in range(b)]
+        Reference grouping (Rotate_iteration :1237-1383): the BABY
+        rotations are the centered offsets offs[0:g]; giant step i
+        rotates by +g*i*shift with its diagonals pre-rolled the opposite
+        way (Rotate_precomp :354-366 Rotate_vector by
+        Reduce_rotation(-g*i*shift, m/4)). Zero diagonals are encoded,
+        not skipped — the reference encodes every dim2 != num_rot, and
+        encode(0) is not the zero polynomial (llround's +0.5 bias), so
+        skipping would break bit-exactness vs the reference-binary stage
+        vectors. In the sparse case the diagonals are the merged 2*slots
+        conjugate-channel tables, and the roll period is their length."""
+        enc = self.ev.encoder
+        nr = len(diags)
         rows = []
-        for i in range(b):
-            row = []
+        for i in range(-(-nr // g)):
             for j in range(g):
                 u = i * g + j
                 if u >= nr:
-                    row.append(ev.encoder.zero_msg())
+                    rows.append(enc.zero_msg())
                     continue
-                period = len(diags[u])
-                d = np.roll(diags[u], (g * i * shift) % period)
-                row.append(ev.encoder.encode_msg_cached(d, slots=len(d)))
-            rows.append(torch.stack(row))
-        return ev.bsgs_iter_jit(ct, baby_offs, giants, torch.stack(rows))
+                d = np.roll(diags[u], (g * i * shift) % len(diags[u]))
+                rows.append(enc.encode_msg(d, slots=len(d)))
+        return torch.stack(rows).view(-1, g, rows[0].numel())
+
+    def _bsgs_level(self, ct: Ciphertext, offs, msgs: torch.Tensor,
+                    shift: int, g: int) -> Ciphertext:
+        """One collapsed FFT level as baby-step/giant-step rotations
+        (Rotate_iteration, ckks_bootstrap_context.c:1284-1365): baby
+        rotations offs[:g] feed per-giant-step MAC groups over the
+        level's messages (_level_msgs), giant step i rotating by
+        g*i*shift (Evaluator.bsgs_iter_jit). In the sparse case the
+        offsets were reduced mod the merged 2*slots period (_transform).
+        """
+        assert g >= 2, f"fft_params gives g >= 2, got {g}"
+        ev = self.ev
+        m4 = ev.params.degree // 2
+        b = -(-len(offs) // g)
+        giants = [reduce_rotation(g * i * shift, m4) for i in range(b)]
+        return ev.bsgs_iter_jit(ct, list(offs[:g]), giants, msgs)
 
     def coeffs_to_slots(self, ct: Ciphertext) -> Ciphertext:
         with TIMING.tm("RTM_BS_COEFF_TO_SLOT"):

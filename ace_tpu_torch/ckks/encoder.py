@@ -82,10 +82,9 @@ def _bit_reverse_perm(n: int) -> np.ndarray:
 
 
 class Encoder:
-    def __init__(self, params: CkksParams, pt_cache_mb: int = 1024,
-                 msg_cache_mb: int = 4096):
-        """pt_cache_mb, msg_cache_mb: budgets of the encoded-plaintext
-        and integer-message LRUs (ace_tpu's defaults; 0 disables)."""
+    def __init__(self, params: CkksParams, pt_cache_mb: int = 1024):
+        """pt_cache_mb: budget of the encoded-plaintext LRU (ace_tpu's
+        default; 0 disables)."""
         self.params = params
         n = params.degree
         self.fft_length = 2 * n
@@ -105,17 +104,10 @@ class Encoder:
         self._pt_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._pt_cache_bytes = 0
-        # 1 GB default: the conv diagonal plaintexts live in the
-        # level-independent message cache, so this LRU only holds small
-        # mask/bias plaintexts
+        # 1 GB default: the conv and bootstrap diagonals are messages,
+        # kept stacked by their call sites (Evaluator.kept_msgs), so
+        # this LRU only holds small mask/bias plaintexts
         self._pt_cache_budget = pt_cache_mb << 20
-        # level-independent integer-message cache (encode_msg_cached):
-        # one [N] int64 row per unique weight vector, reused at EVERY
-        # level/basis by the in-bundle RNS lift
-        self._msg_cache: "collections.OrderedDict" = \
-            collections.OrderedDict()
-        self._msg_cache_bytes = 0
-        self._msg_cache_budget = msg_cache_mb << 20
         self._zero_msg = None
 
     # -- special FFT (ntt.c:678-753) ------------------------------------
@@ -233,7 +225,7 @@ class Encoder:
     # signed int64 coefficient message fully determines the RNS residues
     # at EVERY (level, extended) basis, so the device-side lift + NTT
     # move into the consuming bundle (evaluator rot_mac_groups_msgs)
-    # and one cached [N] int64 row serves all levels. This replaces the
+    # and one kept [N] int64 row serves all levels. This replaces the
     # reference's per-level compile-time encoding (encode/ cte,
     # rt_data_writer.h:62-71) with something strictly smaller: the
     # message is 8N bytes vs (level+K)*8N per-level residues.
@@ -262,28 +254,6 @@ class Encoder:
                                          dtype=torch.int64,
                                          device=self.device)
         return self._zero_msg
-
-    def encode_msg_cached(self, values, slots: int = 0) -> torch.Tensor:
-        """encode_msg() with a content-addressed LRU (key excludes level
-        — the message is basis-independent)."""
-        if self._msg_cache_budget <= 0:
-            return self.encode_msg(values, slots)
-        import hashlib
-        values = np.asarray(values, dtype=np.complex128)
-        key = (hashlib.blake2b(values.tobytes(), digest_size=16)
-               .hexdigest(), slots)
-        hit = self._msg_cache.pop(key, None)
-        if hit is not None:
-            self._msg_cache[key] = hit
-            return hit
-        msg = self.encode_msg(values, slots)
-        self._msg_cache[key] = msg
-        self._msg_cache_bytes += int(msg.numel()) * 8
-        while (self._msg_cache_bytes > self._msg_cache_budget
-               and len(self._msg_cache) > 1):
-            _, old = self._msg_cache.popitem(last=False)
-            self._msg_cache_bytes -= int(old.numel()) * 8
-        return msg
 
     def encode_value(self, value: float, level: int,
                      sf_degree: int = 1) -> Plaintext:

@@ -86,6 +86,8 @@ class Evaluator:
         # op programs by static structure (op, level, rotation indices, ...)
         self._jit_cache: dict = {}
         self._pool = None  # the programs' GraphPool, made at first use
+        # message stacks of the MAC bundles' call sites (kept_msgs)
+        self._stack_counts = dict(stacks_built=0, stacks_reused=0)
         self._keygen = None
         self.keygen = keygen
 
@@ -597,13 +599,28 @@ class Evaluator:
     def program_stats(self) -> dict:
         """Programs cached, and the pool's counts (GraphPool.stats):
         programs lifted, programs captured, capture seconds, graph
-        segments captured, replays, staging and graph-pool bytes."""
+        segments captured, replays, staging and graph-pool bytes; and
+        the message stacks that kept_msgs built and reused."""
         if self._pool is None:
             st = dict(programs=0, captures=0, capture_s=0.0, segments=0,
                       replays=0, staging_bytes=0, pool_bytes=None)
         else:
             st = self._pool.stats()
-        return dict(st, cached=len(self._jit_cache))
+        return dict(st, cached=len(self._jit_cache), **self._stack_counts)
+
+    def kept_msgs(self, memo: dict, key, build) -> torch.Tensor:
+        """memo[key], made by build() at the first call: the [G, R, N]
+        message stack of one MAC-bundle call site (a conv of a compiled
+        graph, a BSGS level of a bootstrap), whose weights, tables and
+        scales are fixed, so later calls encode and stack nothing. The
+        caller owns the memo; the counts are program_stats'."""
+        msgs = memo.get(key)
+        if msgs is None:
+            msgs = memo[key] = build()
+            self._stack_counts["stacks_built"] += 1
+        else:
+            self._stack_counts["stacks_reused"] += 1
+        return msgs
 
     def program_segments(self) -> dict:
         """Program kind (its key's first item) -> the graph segments of

@@ -10,6 +10,8 @@ validation (the analog of -VEC:rtt runtime validation).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 from ace_tpu_torch.compiler import packing as pk
@@ -30,6 +32,8 @@ class GraphRunner:
         self.relu_mul_depth = relu_mul_depth
         self.bootstrap_before_relu = bootstrap_before_relu
         self.trace = trace  # callable(msg) — the -trace per-op log
+        # the MAC bundles' message stacks, by call site (FheBackend.call_site)
+        self._msg_stacks: dict = {}
 
     def run(self, x, checkpoint: str = ""):
         """x: packed input handle (plain vector or ciphertext) holding
@@ -72,7 +76,9 @@ class GraphRunner:
             # (Tensor::conv / FHE::relu lines, rtlib_timing.h)
             bucket = ("FHE::relu" if op.op_type == "Relu"
                       else f"Tensor::{op.op_type.lower()}")
-            with TIMING.tm(bucket):
+            site = (be.call_site(self._msg_stacks, op_idx)
+                    if hasattr(be, "call_site") else contextlib.nullcontext())
+            with TIMING.tm(bucket), site:
                 out = self._op(op, env)
             env[op.outputs[0]] = out
             # drop values no op after this one reads (bounds HBM)

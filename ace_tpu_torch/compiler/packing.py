@@ -23,6 +23,7 @@ clear for validation and encrypted for inference.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -91,6 +92,7 @@ class FheBackend:
         self.enc = encoder
         self.n_slots = evaluator.params.degree // 2
         self.bootstrap_fn = bootstrap_fn
+        self._site = None  # [memo, op index, bundles so far]: call_site
 
     def _norm(self, ct):
         while ct.sf_degree > 1:
@@ -161,6 +163,19 @@ class FheBackend:
         return self.rot_ext_mac_groups(
             ct, [r for r, _ in pairs], [[w for _, w in pairs]])[0]
 
+    @contextlib.contextmanager
+    def call_site(self, memo: dict, op_idx: int):
+        """Inside, the k-th MAC bundle is the call site (op_idx, k) of
+        the graph runner that owns `memo`: its message stack is built at
+        the site's first run and kept there (Evaluator.kept_msgs), since
+        a compiled graph's weights are fixed. Outside, each bundle
+        builds its stack."""
+        self._site = [memo, op_idx, 0]
+        try:
+            yield
+        finally:
+            self._site = None
+
     def rot_ext_mac_groups(self, ct, rots, weight_groups):
         """Shared hoisted rotations feeding several weighted MACs:
         returns [sum_k rot(ct, rots[k]) * W[g][k] for each group g],
@@ -168,19 +183,28 @@ class FheBackend:
         mod-down per group (the reference's combined mod-up + mod-down
         hoisting, ut_ksw_opt.cxx:349-375), run by the evaluator's
         rot_mac_groups_msgs_jit. Weights ship as level-independent int64
-        messages; the RNS lift + NTT happen inside the bundle
-        (encoder.encode_msg_cached)."""
-        import torch
+        messages [G, R, N]; the RNS lift + NTT happen inside the bundle.
+        Inside a call_site the stack is the site's kept one."""
         ev = self.ev
         ct = self._norm(ct)
-        msgs = []
-        for W in weight_groups:
-            row = [self.enc.encode_msg_cached(self._pad(w),
-                                              slots=self.n_slots)
-                   if w is not None and np.any(w) else self.enc.zero_msg()
-                   for w in W]
-            msgs.append(torch.stack(row))
-        return ev.rot_mac_groups_msgs_jit(ct, list(rots), torch.stack(msgs))
+        rots = list(rots)
+        if self._site is None:
+            msgs = self._msg_stack(weight_groups)
+        else:
+            memo, op_idx, k = self._site
+            self._site[2] += 1
+            msgs = ev.kept_msgs(memo, (op_idx, k, tuple(rots)),
+                                lambda: self._msg_stack(weight_groups))
+        return ev.rot_mac_groups_msgs_jit(ct, rots, msgs)
+
+    def _msg_stack(self, weight_groups):
+        """[G, R, N] int64 messages of the weight groups, zero rows for
+        None or all-zero weights."""
+        import torch
+        return torch.stack([torch.stack([
+            self.enc.encode_msg(self._pad(w), slots=self.n_slots)
+            if w is not None and np.any(w) else self.enc.zero_msg()
+            for w in W]) for W in weight_groups])
 
     def rot_sum(self, items):
         """sum_i rot(ct_i, r_i) with a single trailing mod-down per

@@ -100,7 +100,6 @@ class FheContext:
         key_b = switch_key_nbytes(p) * lk // (L + K)
         n_keys = self.keygen.max_rot_keys or 0
         keys = n_keys * key_b
-        msg_budget = self.encoder._msg_cache_budget
         pt_budget = self.encoder._pt_cache_budget
         bundle = self.evaluator.max_bundle_msg
         # peak bundle workspace: R keyswitch exts (2 polys, L+K limbs)
@@ -109,13 +108,12 @@ class FheContext:
         exts = bundle * 2 * row
         kdig = bundle * 2 * p.crt.num_decomp(L) * row
         work = exts + kdig + 4 * row
-        total = keys + msg_budget + pt_budget + work
+        total = keys + pt_budget + work
         return ("[RT_STAT] device-memory plan: rot-keys %d x %.0f MB = "
-                "%.2f GB, msg-cache %.1f GB, pt-cache %.1f GB, bundle "
-                "workspace %.2f GB (R<=%d at L=%d) -> planned peak %.2f GB "
-                "(+ live ciphertexts)"
-                % (n_keys, key_b / 2**20, keys / 2**30,
-                   msg_budget / 2**30, pt_budget / 2**30,
+                "%.2f GB, pt-cache %.1f GB, bundle workspace %.2f GB "
+                "(R<=%d at L=%d) -> planned peak %.2f GB (+ live "
+                "ciphertexts and the kept message stacks)"
+                % (n_keys, key_b / 2**20, keys / 2**30, pt_budget / 2**30,
                    work / 2**30, bundle, L, total / 2**30))
 
     @classmethod
@@ -227,6 +225,11 @@ class FheContext:
                    for p in (*key.b, *key.a))
 
     def finalize(self) -> str:
+        st = self.evaluator.program_stats()
         return "\n".join(["[RT_STAT] key memory: %.1f MB"
                           % (self.key_memory_bytes() / 2**20),
+                          "[RT_STAT] op programs: %d cached, %d captured, "
+                          "%d replays; message stacks: %d built, %d reused"
+                          % (st["cached"], st["captures"], st["replays"],
+                             st["stacks_built"], st["stacks_reused"]),
                           TIMING.report()])

@@ -179,7 +179,7 @@ def patch_encoder(enc) -> None:
         return enc.zero_msg()
 
     enc.encode = enc.encode_cached = stub_encode
-    enc.encode_msg = enc.encode_msg_cached = stub_encode_msg
+    enc.encode_msg = stub_encode_msg
 
 
 def patch_keygen(kg) -> None:

@@ -230,7 +230,7 @@ def ref_msg(plobj, ev) -> np.ndarray:
 
 class _PlainInjector:
     """Serves the reference's dumped diagonal messages in the order
-    _bsgs_level requests them (levels as _transform visits them, dim2
+    _level_msgs requests them (levels as _transform visits them, dim2
     ascending within each)."""
 
     def __init__(self, plains, order, ev):
@@ -294,7 +294,7 @@ def test_transform_bit_exact_with_ref_plains(vec, ref, monkeypatch,
     else:
         inj = _PlainInjector(vec["s2c_plains"], [0, 1, 2], ev)
         src, want, run = "bts_combined", "bts_s2c", bts.slots_to_coeffs
-    monkeypatch.setattr(ev.encoder, "encode_msg_cached", inj)
+    monkeypatch.setattr(ev.encoder, "encode_msg", inj)
     got = run(as_ciph(vec[src]))
     assert inj.i == len(inj.queue), "plaintext request order drifted"
     ct_eq(got, as_ciph(vec[want]), want)
@@ -465,6 +465,6 @@ def test_fft_params_give_two_baby_steps(log_slots):
 def test_bsgs_level_refuses_one_baby_step(pair):
     _, tev = pair
     a = port_ct(_ct(pair[0], 4, seed=11))
+    msgs = torch.zeros(4, 1, tev.params.degree, dtype=torch.int64)
     with pytest.raises(AssertionError, match="g >= 2"):
-        TB.BootstrapContext(tev)._bsgs_level(
-            a, [31, 0, 1, 2], [np.zeros(32, np.complex128)] * 4, 1, 1, 32)
+        TB.BootstrapContext(tev)._bsgs_level(a, [31, 0, 1, 2], msgs, 1, 1)
